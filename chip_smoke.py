@@ -5,18 +5,29 @@
 
 Phases, each failing the run if it fails:
   1. device: require CUDA, print the card's name and power limit, build
-     every kernel of the completion path from csrc/ with nvcc (sm_90a);
-  2. kernels vs their plain PyTorch versions at the main path's shapes
-     (B=64, N=M=2048, masked and unmasked);
-  3. the main path at full width: the flagship config with random weights
-     from a fixed seed, ``complete`` against ``complete_fast`` (f32, all
-     gate modes), the bf16 engine against f32, an engine file served by
-     ``gan_rl_3d_tpu_torch.complete_clouds --engine`` on .txt and .ply
-     clouds, and the completions scored by ``evaluate_completion``; every
-     kernel's launch counter must move in this phase;
-  4. times: each kernel, its plain version, the least time the card could
-     take (bound) and a library yardstick, at B=64 and B=4096, and the
-     time per ``complete_fast`` call (and clouds/s) at B=64 and B=4096.
+     every kernel from csrc/ with nvcc (sm_90a), one process per source;
+  2. kernels vs their plain PyTorch versions at the main paths' shapes
+     (B=64, N=M=2048, masked and unmasked): K1, K3, K2; K4 (gather) and K5
+     (scatter), K5 twice for identical bits; the Chamfer gradient by the
+     kernels against the same autograd Function on CPU copies;
+  3. the serving path at full width: the flagship config with random
+     weights from a fixed seed, ``complete`` against ``complete_fast``
+     (f32, all gate modes), the bf16 engine against f32, an engine file
+     served by ``gan_rl_3d_tpu_torch.complete_clouds --engine`` on .txt
+     and .ply clouds, and the completions scored by
+     ``evaluate_completion``; K1, K3 and K2 must launch in this phase;
+  4. the training path at full width: a synthetic dataset written by the
+     port, ``RLGANNetTrainer(...).train_autoencoder()`` for 2 epochs of
+     2 steps at B=64 with the flagship recipe (bf16_selective), every
+     loss finite, K3, K4 and K5 launched, the best checkpoint reloaded;
+     then one f32 ``ae_train_step`` at B=8 on the card against the same
+     step on the CPU (same weights and draws): loss and every gradient;
+  5. times: each kernel, its plain version, the least time the card could
+     take (bound) and a library yardstick, at B=64 (and B=4096 for the
+     serving kernels, B=512 for K4 and K5), the time per ``complete_fast``
+     call at B=64 and B=4096, and per ``ae_train_step`` at B=64 in f32 and
+     bf16_selective, with a torch.profiler trace of the step (device busy
+     time, idle share, launches, top kernels).
 
 The next-to-last line is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}. Any failure raises and exits
@@ -45,8 +56,27 @@ TOL_F32 = 1e-4      # f32 kernel / engine vs plain, scaled by max(1, |ref|)
 TOL_BF16 = 2e-2     # bf16 vs its reference, relative to max |ref|
 TOL_DIST = 1e-3     # |a|^2+|b|^2-2ab cancellation in f32
 TIE_GAP = 1e-4      # squared-distance gap below which an index may differ
+# K4 / K5 vs plain, scaled by max(1, |ref|): K4 rounds as its plain version
+# does; K5 sums in increasing i, the plain scatter_add_ in another order
+TOL_GRAD_KERNEL = 1e-5
+# Chamfer gradient, card vs CPU copies, relative to the largest element:
+# K3's distances differ from the plain version's in the last bits (another
+# order of |a|^2 + |b|^2 - 2ab), and g / dist carries that into da
+TOL_CHAMFER_GRAD = 1e-4
+# one f32 AE step, card vs CPU: cuBLAS and the CPU's BLAS sum in other
+# orders, and at a random init a nearest-neighbour near-tie can flip under
+# last-bit differences of the reconstruction, which moves that point's
+# gradient (such a flip measured 4.3e-4 of the largest gradient element
+# between the JAX package and the port on the CPU); relative to the
+# largest gradient element, and to the loss
+TOL_STEP_GRAD = 2e-3
+TOL_STEP_LOSS = 1e-4
 B_MAIN, N_MAIN = 64, 2048
 B_BIG = 4096
+B_GRAD_BIG = 512
+B_STEP_CHECK = 8
+TRACE_STEPS = 5     # ae_train_steps traced by torch.profiler
+TRACE_TOP = 12      # kernels listed by their device time
 
 
 # ---------------------------------------------------------------------------
@@ -173,6 +203,22 @@ def timed_ms(fn, reps: int = 20, repeats: int = 5) -> float:
     return float(np.median(times))
 
 
+def graph_ms(fn, reps: int = 20, repeats: int = 5) -> float:
+    """Device time per call of a short kernel: ``reps`` calls captured in
+    one CUDA graph and replayed, so the host's per-call work (argument
+    checks, allocation, the ctypes call) is left out of the time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return timed_ms(graph.replay, reps=1, repeats=repeats) / reps
+
+
 def chunked(fn, bsz: int, chunk: int):
     """fn(lo, hi) over batch chunks: the plain distance versions and the
     library call materialise (B, N, M), too large to hold at B=4096."""
@@ -276,6 +322,109 @@ def phase_kernels(device, engine_f32, engine_bf16):
     return errs
 
 
+def grad_inputs(bsz, n, m, seed, device, masked):
+    """K3's outputs on two clouds and a cotangent g ~ U(0.5, 1.5), the
+    inputs K4 and K5 see in the Chamfer backward."""
+    from gan_rl_3d_tpu_torch.ops import chamfer
+
+    a, _ = make_clouds(bsz, n, seed=seed, device=device)
+    b, b_mask = make_clouds(bsz, m, seed=seed + 1, device=device)
+    bm = b_mask if masked else None
+    dist, idx = chamfer.nearest_distances(a, b, b_mask=bm)
+    g = 0.5 + torch.rand(bsz, n, generator=torch.Generator(device=device)
+                         .manual_seed(seed + 2), device=device)
+    return a, b, bm, dist, idx, g
+
+
+def chamfer_grad_vs_cpu(a, b, b_mask=None):
+    """The Chamfer gradient w.r.t. both clouds by the autograd Function on
+    ``a``'s device (the kernels) against the same Function on CPU copies
+    (the plain versions). A query point whose neighbour differs (a
+    near-tie: K3 and the plain version round |a|^2 + |b|^2 - 2ab
+    differently) moves the gradient of it and of both candidate
+    neighbours, so those are left out. Returns (the largest difference
+    relative to the largest gradient element, the number of points left
+    out, the largest |gradient| of a masked b point)."""
+    from gan_rl_3d_tpu_torch.ops import chamfer
+
+    grads = []
+    for dev in (a.device, torch.device("cpu")):
+        x = a.detach().to(dev).requires_grad_(True)
+        y = b.detach().to(dev).requires_grad_(True)
+        bm = None if b_mask is None else b_mask.to(dev)
+        chamfer.chamfer_distance(x, y, b_mask=bm).sum().backward()
+        i_ab = chamfer.nearest_distances(x.detach(), y.detach(), b_mask=bm)[1]
+        i_ba = chamfer.nearest_distances(y.detach(), x.detach())[1]
+        grads.append((x.grad.cpu(), y.grad.cpu(), i_ab.cpu(), i_ba.cpu()))
+    (ga, gb, ia, ib), (ra, rb, ria, rib) = grads
+    bad_a, bad_b = ia != ria, ib != rib
+    for q, p, bad_target in ((ia, ria, bad_b), (ib, rib, bad_a)):
+        rows, cols = (q != p).nonzero(as_tuple=True)
+        bad_target[rows, q[rows, cols].long()] = True
+        bad_target[rows, p[rows, cols].long()] = True
+    scale = float(torch.maximum(ra.abs().max(), rb.abs().max()))
+    err = max(float((ga - ra).abs()[~bad_a].max()),
+              float((gb - rb).abs()[~bad_b].max())) / scale
+    masked_grad = 0.0
+    if b_mask is not None and bool((b_mask == 0).any()):
+        masked_grad = float(gb[(b_mask == 0).cpu()].abs().max())
+    return err, int(bad_a.sum() + bad_b.sum()), masked_grad
+
+
+def phase_grad_kernels(device):
+    """K4 and K5 against their plain versions, K5's repeatability, and the
+    Chamfer gradient by the kernels against the same Function on the CPU."""
+    from gan_rl_3d_tpu_torch.ops import chamfer
+
+    errs = {"nn_gather": 0.0, "nn_scatter": 0.0}
+    for masked in (False, True):
+        a, b, _, dist, idx, g = grad_inputs(B_MAIN, N_MAIN, N_MAIN, 10,
+                                            device, masked)
+        da = chamfer.nearest_grad_a(a, b, idx, dist, g)
+        ref = chamfer.nearest_grad_a_plain(a, b, idx, dist, g)
+        e = scaled_err(da, ref)
+        errs["nn_gather"] = max(errs["nn_gather"],
+                                float((da - ref).abs().max()))
+        expect(e <= TOL_GRAD_KERNEL, f"nn_gather disagrees ({e:.3e})")
+        db = chamfer.nearest_grad_b(idx, da, N_MAIN)
+        ref = chamfer.nearest_grad_b_plain(idx, da, N_MAIN)
+        e = scaled_err(db, ref)
+        errs["nn_scatter"] = max(errs["nn_scatter"],
+                                 float((db - ref).abs().max()))
+        expect(e <= TOL_GRAD_KERNEL, f"nn_scatter disagrees ({e:.3e})")
+        expect(torch.equal(db, chamfer.nearest_grad_b(idx, da, N_MAIN)),
+               "nn_scatter: two launches on the same inputs differ")
+        # ragged sizes, off every tile and chunk boundary
+        ra, rb, _, rd, ri, rg = grad_inputs(3, 2501, 777, 11, device, masked)
+        rda = chamfer.nearest_grad_a(ra, rb, ri, rd, rg)
+        expect(scaled_err(rda, chamfer.nearest_grad_a_plain(ra, rb, ri, rd,
+                                                            rg))
+               <= TOL_GRAD_KERNEL, "nn_gather ragged disagrees")
+        expect(scaled_err(chamfer.nearest_grad_b(ri, rda, 777),
+                          chamfer.nearest_grad_b_plain(ri, rda, 777))
+               <= TOL_GRAD_KERNEL, "nn_scatter ragged disagrees")
+    print(f"nn_gather: max abs err vs plain {errs['nn_gather']:.3e}; "
+          f"nn_scatter: {errs['nn_scatter']:.3e} (tol {TOL_GRAD_KERNEL:g} "
+          "scaled), bitwise repeatable")
+
+    worst = 0.0
+    for masked in (False, True):
+        a, _ = make_clouds(B_MAIN, N_MAIN, seed=12, device=device)
+        b, b_mask = make_clouds(B_MAIN, N_MAIN, seed=13, device=device)
+        e, flipped, masked_grad = chamfer_grad_vs_cpu(
+            a, b, b_mask if masked else None)
+        worst = max(worst, e)
+        print(f"chamfer grad ({'masked' if masked else 'unmasked'}): "
+              f"card vs CPU {e:.3e} of max |grad| (tol "
+              f"{TOL_CHAMFER_GRAD:g}); {flipped} of {2 * B_MAIN * N_MAIN} "
+              "points left out for a flipped neighbour")
+        expect(flipped <= 64, "too many flipped neighbours")
+        expect(masked_grad == 0.0, "masked b points got a gradient")
+    expect(worst <= TOL_CHAMFER_GRAD, "chamfer gradient disagrees")
+    torch.cuda.synchronize()
+    return errs
+
+
 def phase_main(device, model, tmp: Path):
     """The completion path at full width, counted launch by launch."""
     from gan_rl_3d_tpu_torch import complete_clouds
@@ -353,16 +502,111 @@ def phase_main(device, model, tmp: Path):
         f"{k}={float(v):.6f}" for k, v in scores.items()))
     torch.cuda.synchronize()
     counts = dict(_cuda.launch_counts)
-    print(f"main-path launches: {counts}")
-    for name in KERNELS:
+    print(f"serving-path launches: {counts}")
+    for name in SERVING_KERNELS:
         expect(counts.get(name, 0) > 0, f"{name} never launched on the "
-               "main path")
+               "serving path")
     return engine, engine_bf16, counts
 
 
 def _flagship():
     from gan_rl_3d_tpu_torch.config import flagship_config
     return flagship_config()
+
+
+def phase_train(device, tmp: Path):
+    """The training path at full width: phase 1 of the curriculum through
+    the trainer the CLI calls, counted launch by launch; then one f32 step
+    on the card against the same step on the CPU."""
+    import dataclasses
+
+    from gan_rl_3d_tpu_torch.data.dataset import setup_dataset
+    from gan_rl_3d_tpu_torch.ops import _cuda
+    from gan_rl_3d_tpu_torch.train.trainer import RLGANNetTrainer
+
+    t0 = time.perf_counter()
+    # 8 categories x 16 train clouds: 2 steps per epoch at B=64
+    setup_dataset(str(tmp / "data"), synthetic=True, samples_per_category=16)
+    print(f"synthetic dataset written in {time.perf_counter() - t0:.1f}s")
+    cfg = _flagship()
+    cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, data_dir=str(tmp / "data")),
+        training=dataclasses.replace(
+            cfg.training, checkpoint_dir=str(tmp / "ckpt"),
+            autoencoder=dataclasses.replace(cfg.training.autoencoder,
+                                            epochs=2)))
+    trainer = RLGANNetTrainer(cfg, device=device)
+    torch.cuda.synchronize()
+    _cuda.launch_counts.clear()
+    t0 = time.perf_counter()
+    best = trainer.train_autoencoder()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(_cuda.launch_counts)
+    losses = trainer.train_losses
+    print(f"training-path launches: {counts}")
+    print(f"train_autoencoder: {len(losses)} steps ({dt:.2f}s with "
+          f"validation), losses {[round(x, 6) for x in losses]}, best val "
+          f"{best:.6f}")
+    expect(len(losses) == 4 and all(np.isfinite(losses)) and np.isfinite(best),
+           "non-finite or missing training loss")
+    for name in TRAINING_KERNELS:
+        expect(counts.get(name, 0) > 0, f"{name} never launched on the "
+               "training path")
+    saved = trainer.model["ae"]
+    expect((tmp / "ckpt" / "autoencoder_best").exists(),
+           "autoencoder_best was not written")
+    epoch, phase = trainer.load_checkpoint("autoencoder_best")
+    expect((epoch, phase) == (1, "autoencoder"), f"checkpoint meta {epoch}, "
+           f"{phase}")
+    for a, b in zip(_leaves(saved), _leaves(trainer.model["ae"])):
+        expect(torch.equal(a.detach(), b.detach()),
+               "reloaded checkpoint differs from the trained model")
+    print("autoencoder_best reloaded through the port's load_checkpoint")
+    step_check(device, trainer.model["ae"])
+    return counts
+
+
+def _leaves(tree):
+    from gan_rl_3d_tpu_torch.utils.tree import tree_leaves
+    return tree_leaves(tree)
+
+
+def step_check(device, ae_model):
+    """One f32 ae_train_step at B=8 on the card and on the CPU, from the
+    same weights, batch and draws: the loss and every gradient."""
+    from gan_rl_3d_tpu_torch.config import AETrainConfig
+    from gan_rl_3d_tpu_torch.ops import pointcloud as pc_ops
+    from gan_rl_3d_tpu_torch.train import steps
+    from gan_rl_3d_tpu_torch.utils.tree import tree_map
+
+    pc, _ = make_clouds(B_STEP_CHECK, N_MAIN, seed=20, device=device)
+    draws = pc_ops.draw_training_batch(torch.Generator().manual_seed(21),
+                                       B_STEP_CHECK, N_MAIN)
+    results = []
+    for dev in (device, torch.device("cpu")):
+        params = tree_map(lambda v: v.detach().to(dev).clone()
+                          .requires_grad_(True), ae_model["params"])
+        state = tree_map(lambda v: v.detach().to(dev), ae_model["state"])
+        opt, _ = steps.make_ae_optimizer(params, AETrainConfig(), 1)
+        _, m = steps.ae_train_step(
+            params, state, opt,
+            {"complete_pc": pc.to(dev),
+             "pad": torch.zeros(B_STEP_CHECK, device=dev)},
+            {k: v.to(dev) for k, v in draws.items()},
+            bn_stats="single_read_grouped")
+        results.append((float(m["loss"]),
+                        [p.grad.cpu() for p in _leaves(params)]))
+    (loss, grads), (ref_loss, ref_grads) = results
+    scale = max(float(g.abs().max()) for g in ref_grads)
+    e = max(float((g - r).abs().max()) for g, r in zip(grads, ref_grads))
+    e /= scale
+    le = abs(loss - ref_loss) / abs(ref_loss)
+    print(f"ae_train_step f32 B={B_STEP_CHECK}: loss card {loss:.7f} cpu "
+          f"{ref_loss:.7f} (rel {le:.3e}, tol {TOL_STEP_LOSS:g}); gradients "
+          f"{e:.3e} of max |grad| {scale:.3e} (tol {TOL_STEP_GRAD:g})")
+    expect(le <= TOL_STEP_LOSS and e <= TOL_STEP_GRAD,
+           "the f32 step on the card disagrees with the CPU")
 
 
 KERNELS = {
@@ -374,7 +618,14 @@ KERNELS = {
                 "gan_rl_3d_tpu/ops/chamfer.py:121"),
     "nn_min": ("gan_rl_3d_tpu_torch/csrc/nn_dist.cu",
                "gan_rl_3d_tpu/ops/chamfer.py:201"),
+    "nn_gather": ("gan_rl_3d_tpu_torch/csrc/nn_grad.cu",
+                  "gan_rl_3d_tpu/ops/chamfer.py:289"),
+    "nn_scatter": ("gan_rl_3d_tpu_torch/csrc/nn_grad.cu",
+                   "gan_rl_3d_tpu/ops/chamfer.py:309"),
 }
+SERVING_KERNELS = ("encoder_pool_f32", "encoder_pool_bf16", "nn_dist",
+                   "nn_min")
+TRAINING_KERNELS = ("nn_dist", "nn_gather", "nn_scatter")
 
 
 def encoder_bound(bsz, n, layers, bf16):
@@ -394,6 +645,20 @@ def nn_bound(bsz, n, m, keep_idx):
     ops_s = bsz * n * m * 8 / PEAK_F32
     nbytes = (bsz * n * 3 + bsz * m * 3) * 4 + bsz * n * (8 if keep_idx else 4)
     return _bound(ops_s, nbytes)
+
+
+def gather_bound(bsz, n, m):
+    """K4 reads a, b, idx, dist, g once and writes da; about 9 flop a point
+    (compare, max, divide, 3 subtract, 3 multiply)."""
+    nbytes = (bsz * n * 3 + bsz * m * 3 + 3 * bsz * n + bsz * n * 3) * 4
+    return _bound(bsz * n * 9 / PEAK_F32, nbytes)
+
+
+def scatter_bound(bsz, n, m):
+    """K5 reads idx and da once and writes db; the sum needs 3 adds a query
+    point (its O(N M) compares are this design's cost, not the function's)."""
+    nbytes = (bsz * n + bsz * n * 3 + bsz * m * 3) * 4
+    return _bound(bsz * n * 3 / PEAK_F32, nbytes)
 
 
 def _bound(ops_s, nbytes):
@@ -458,6 +723,120 @@ def phase_times(device, engine, engine_bf16):
     return rows
 
 
+def device_kernel_times(prof):
+    """(name, launches, device us) of every kernel, copy and memset in a
+    torch.profiler trace. The device-side range of a record_function
+    annotation (such as Optimizer.step#Adam.step) overlaps the kernels it
+    holds; it carries the name of its host-side range, so device events
+    named like a host event are left out."""
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.key_averages()
+    host_names = {e.key for e in events if e.device_type != cuda}
+    return [(e.key, e.count, e.self_device_time_total) for e in events
+            if e.device_type == cuda and e.key not in host_names]
+
+
+def phase_train_times(device):
+    """K4 and K5 at B=64 and 512 beside their plain versions, bounds and
+    library yardsticks (K4's is torch.gather plus the arithmetic, which is
+    its plain version timed again: no one library call computes the fused
+    function; index_add_ for K5), all as device time from CUDA graphs (an
+    eager call of these microsecond kernels measures the host). Then one
+    ae_train_step at B=64, N=2048 at the flagship widths in f32 and
+    bf16_selective: its time, and a torch.profiler trace of TRACE_STEPS
+    steps for the device's busy time, its idle share of the step, the
+    launches per step and the kernels that take the most device time."""
+    from gan_rl_3d_tpu_torch.models import autoencoder as ae
+    from gan_rl_3d_tpu_torch.ops import chamfer
+    from gan_rl_3d_tpu_torch.ops import pointcloud as pc_ops
+    from gan_rl_3d_tpu_torch.train import steps
+    from gan_rl_3d_tpu_torch.utils.tree import tree_map
+
+    rows = {}
+    for bsz in (B_MAIN, B_GRAD_BIG):
+        a, b, _, dist, idx, g = grad_inputs(bsz, N_MAIN, N_MAIN, 14, device,
+                                            False)
+        da = chamfer.nearest_grad_a(a, b, idx, dist, g)
+        flat = (idx.long() + N_MAIN * torch.arange(
+            bsz, device=device)[:, None]).reshape(-1)
+        neg = (-da).reshape(-1, 3)
+        acc = torch.zeros(bsz * N_MAIN, 3, device=device)
+        for name, kernel, plain, library, (bound, by) in (
+                ("nn_gather",
+                 lambda: chamfer.nearest_grad_a(a, b, idx, dist, g),
+                 lambda: chamfer.nearest_grad_a_plain(a, b, idx, dist, g),
+                 lambda: chamfer.nearest_grad_a_plain(a, b, idx, dist, g),
+                 gather_bound(bsz, N_MAIN, N_MAIN)),
+                ("nn_scatter",
+                 lambda: chamfer.nearest_grad_b(idx, da, N_MAIN),
+                 lambda: chamfer.nearest_grad_b_plain(idx, da, N_MAIN),
+                 lambda: acc.index_add_(0, flat, neg),
+                 scatter_bound(bsz, N_MAIN, N_MAIN))):
+            rows[(name, bsz)] = dict(
+                ms=graph_ms(kernel), plain_ms=graph_ms(plain),
+                bound_ms=bound, bound_by=by, library_ms=graph_ms(library),
+                call_ms=timed_ms(kernel))
+    for (name, bsz), r in rows.items():
+        print(f"time {name} B={bsz}: kernel {r['ms']:.4f} ms (device, "
+              f"CUDA graph; {r['call_ms']:.4f} ms per eager call), plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), library {r['library_ms']:.4f} ms")
+
+    cfg = _flagship()
+    m = cfg.model.autoencoder
+    params, state = ae.autoencoder_init(
+        torch.Generator().manual_seed(0), m.input_dim, m.latent_dim,
+        m.num_points, m.encoder_dims, m.decoder_dims)
+    params = tree_map(lambda v: v.to(device).requires_grad_(True), params)
+    state = tree_map(lambda v: v.to(device), state)
+    opt, _ = steps.make_ae_optimizer(params, cfg.training.autoencoder, 2)
+    pc, _ = make_clouds(B_MAIN, N_MAIN, seed=15, device=device)
+    batch = {"complete_pc": pc, "pad": torch.zeros(B_MAIN, device=device)}
+    draws = pc_ops.draw_training_batch(
+        torch.Generator(device=device).manual_seed(16), B_MAIN, N_MAIN)
+
+    def ae_step(precision):
+        dtype, selective = steps.compute_dtype_of(precision)
+        steps.ae_train_step(params, state, opt, batch, draws,
+                            compute_dtype=dtype, selective=selective,
+                            bn_stats=cfg.training.bn_stats)
+
+    step_ms = {}
+    for precision in ("float32", "bf16_selective"):
+        torch.cuda.reset_peak_memory_stats()
+        ms = step_ms[precision] = timed_ms(
+            lambda: ae_step(precision), reps=10, repeats=3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"ae_train_step {precision} B={B_MAIN}: {ms:.3f} ms per step, "
+              f"{B_MAIN / (ms / 1e3):.1f} clouds/s, peak memory "
+              f"{peak:.2f} GiB")
+    # traced only after every step is timed: timed after a trace in the
+    # same process, the bf16_selective step read 67.8 ms, against 48.8 ms
+    # in a process that had traced nothing (H100 80GB HBM3, 700 W)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for precision, ms in step_ms.items():
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(TRACE_STEPS):
+                ae_step(precision)
+            torch.cuda.synchronize()
+        events = device_kernel_times(prof)
+        busy = sum(us for _, _, us in events) / 1e3 / TRACE_STEPS
+        launches = sum(n for _, n, _ in events) / TRACE_STEPS
+        print(f"ae_train_step {precision} trace of {TRACE_STEPS} steps: "
+              f"device busy {busy:.3f} ms a step, idle share "
+              f"{1 - busy / ms:.3f} of the {ms:.3f} ms step, {launches:.0f} "
+              "device launches a step; most device time:")
+        for name, n, us in sorted(events, key=lambda e: -e[2])[:TRACE_TOP]:
+            print(f"  {us / 1e3 / TRACE_STEPS:9.4f} ms  x{n / TRACE_STEPS:5.0f}"
+                  f"  {name[:110]}")
+    ms = timed_ms(lambda: ae_step("float32"), reps=10, repeats=3)
+    print(f"ae_train_step float32 B={B_MAIN} timed again after the traces: "
+          f"{ms:.3f} ms per step")
+    torch.cuda.synchronize()
+    return rows
+
+
 def main() -> None:
     device = phase_device()
     from gan_rl_3d_tpu_torch.convert import model_from_numpy
@@ -468,21 +847,29 @@ def main() -> None:
     errs = phase_kernels(device, inference.prepare_inference_engine(model),
                          inference.prepare_inference_engine(
                              model, dtype=torch.bfloat16))
+    errs.update(phase_grad_kernels(device))
     with tempfile.TemporaryDirectory() as tmp:
-        engine, engine_bf16, counts = phase_main(device, model, Path(tmp))
+        engine, engine_bf16, serving = phase_main(device, model, Path(tmp))
+        training = phase_train(device, Path(tmp))
     rows = phase_times(device, engine, engine_bf16)
+    rows.update(phase_train_times(device))
 
-    print("kernels: " + ", ".join(f"{k} x{counts[k]}" for k in KERNELS))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        main_row, big = rows[(name, B_MAIN)], rows[(name, B_BIG)]
-        kernels.append({
+        by_path = {"serving": serving.get(name, 0),
+                   "training": training.get(name, 0)}
+        row = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counts[name],
-            "max_abs_err": errs[name], **main_row,
-            "shape": f"B={B_MAIN}, N=M={N_MAIN}",
-            f"b{B_BIG}": big,
-        })
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": errs[name],
+            **rows[(name, B_MAIN)], "shape": f"B={B_MAIN}, N=M={N_MAIN}",
+        }
+        for big in (B_BIG, B_GRAD_BIG):
+            if (name, big) in rows:
+                row[f"b{big}"] = rows[(name, big)]
+        kernels.append(row)
+    print("kernels: " + ", ".join(
+        f"{k['name']} x{k['launches']}" for k in kernels))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
-"""Typed configuration: the serving half of gan_rl_3d_tpu/config.py.
+"""Typed configuration (gan_rl_3d_tpu/config.py).
 
-Frozen dataclasses for ``model.*``, ``training.checkpoint_dir`` and the
-TD3 fields inference reads, with the JAX package's defaults
-(gan_rl_3d_tpu/config.py:29-61). ``load_config`` reads the same YAML
-schema; sections and keys this slice does not model are skipped.
+Frozen dataclasses for ``model.*``, the training fields the serving path
+and the autoencoder phase read, ``loss``, ``data``, ``evaluation`` and
+``logging``, with the JAX package's defaults and validation
+(gan_rl_3d_tpu/config.py:29-311). ``load_config`` reads the same YAML
+schema; sections and keys the port does not model yet (the LGAN, RL and
+joint training blocks but the exploration noise) are skipped.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
 from gan_rl_3d_tpu_torch.models.rl_agent import TD3Config
+from gan_rl_3d_tpu_torch.ops.pointcloud import PreprocSpec
 
 GATE_MODES = ("discriminator", "rl", "ae", "union")
 
@@ -45,14 +48,117 @@ class RLAgentModelConfig:
 
 
 @dataclass(frozen=True)
+class AETrainConfig:
+    epochs: int = 100
+    batch_size: int = 32
+    lr: float = 1e-3
+    weight_decay: float = 1e-5
+    scheduler_step: int = 30
+    scheduler_gamma: float = 0.1
+    # "step": torch StepLR semantics; "cosine": cosine decay over the phase
+    lr_schedule: str = "step"
+    # stage s of 3 trains with the hole bounds scaled by (s + 1) / 3
+    hole_curriculum: bool = False
+
+    def __post_init__(self):
+        if self.lr_schedule not in ("step", "cosine"):
+            raise ValueError(
+                f"autoencoder.lr_schedule must be 'step' or 'cosine', "
+                f"got {self.lr_schedule!r}")
+
+
+@dataclass(frozen=True)
 class RLTrainConfig:
     exploration_noise: float = 0.1
 
 
 @dataclass(frozen=True)
 class TrainingConfig:
+    # "float32"; "bfloat16"/"bf16" (bf16 matmul operands and activations,
+    # f32 master weights, BN statistics and loss); "bf16_selective" (bf16
+    # but the decoder's coordinate head and the encoder's last point-MLP
+    # layer, which stay f32)
+    precision: str = "float32"
+    # training BatchNorm statistics: "single_read_grouped" or "centered"
+    bn_stats: str = "single_read_grouped"
+    # the JAX package's placement of the resident train split on a mesh;
+    # the port runs on one device, where both values place it whole
+    data_residency: str = "replicated"
+    seed: int = 42
+    batch_size: int = 32
+    num_workers: int = 4
     checkpoint_dir: str = "./checkpoints"
+    log_dir: str = "./logs"
+    autoencoder: AETrainConfig = field(default_factory=AETrainConfig)
     rl_agent: RLTrainConfig = field(default_factory=RLTrainConfig)
+
+    def __post_init__(self):
+        if self.precision not in ("float32", "f32", "bfloat16", "bf16",
+                                  "bf16_selective"):
+            raise ValueError(
+                f"training.precision must be one of float32/bfloat16/"
+                f"bf16_selective, got {self.precision!r}")
+        if self.bn_stats not in ("centered", "single_read_grouped"):
+            raise ValueError(
+                f"training.bn_stats must be 'centered' or "
+                f"'single_read_grouped', got {self.bn_stats!r}")
+        if self.data_residency not in ("replicated", "sharded"):
+            raise ValueError(
+                f"training.data_residency must be 'replicated' or "
+                f"'sharded', got {self.data_residency!r}")
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    chamfer_loss: str = "bidirectional"
+    reconstruction_loss: str = "chamfer"
+
+    def __post_init__(self):
+        if self.chamfer_loss not in ("bidirectional", "forward",
+                                     "unidirectional"):
+            raise ValueError(
+                f"loss.chamfer_loss must be 'bidirectional' or 'forward', "
+                f"got {self.chamfer_loss!r}")
+        if self.reconstruction_loss not in ("chamfer", "mse"):
+            raise ValueError(
+                f"loss.reconstruction_loss must be 'chamfer' or 'mse', "
+                f"got {self.reconstruction_loss!r}")
+
+    @property
+    def bidirectional(self) -> bool:
+        return self.chamfer_loss == "bidirectional"
+
+
+@dataclass(frozen=True)
+class AugmentationConfig:
+    rotation: bool = True
+    jitter: bool = True
+    scale: bool = True
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    data_dir: str = "./data/shapenet"
+    train_split: float = 0.8
+    val_split: float = 0.1
+    test_split: float = 0.1
+    augmentation: AugmentationConfig = field(default_factory=AugmentationConfig)
+    normalize: bool = True
+    center: bool = True
+    unit_sphere: bool = True
+    hole_min_ratio: float = 0.2
+    hole_max_ratio: float = 0.5
+
+
+@dataclass(frozen=True)
+class EvaluationConfig:
+    eval_frequency: int = 10
+
+
+@dataclass(frozen=True)
+class LoggingConfig:
+    log_frequency: int = 100
+    save_model_frequency: int = 10
 
 
 @dataclass(frozen=True)
@@ -75,18 +181,41 @@ class ModelConfig:
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     training: TrainingConfig = field(default_factory=TrainingConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    evaluation: EvaluationConfig = field(default_factory=EvaluationConfig)
+    logging: LoggingConfig = field(default_factory=LoggingConfig)
 
     def td3_config(self) -> TD3Config:
         return TD3Config(
             exploration_noise=self.training.rl_agent.exploration_noise)
 
+    def preproc_spec(self) -> PreprocSpec:
+        """data.{augmentation.*, normalize, center, unit_sphere,
+        hole_*_ratio} as one PreprocSpec (config.py:382-397)."""
+        d = self.data
+        return PreprocSpec(
+            rotation=d.augmentation.rotation, jitter=d.augmentation.jitter,
+            scale=d.augmentation.scale, normalize=d.normalize,
+            center=d.center, unit_sphere=d.unit_sphere,
+            hole_min=d.hole_min_ratio, hole_max=d.hole_max_ratio)
+
 
 def flagship_config() -> Config:
-    """The shipped recipe's model (configs/config.yaml:22-49): the default
-    widths with an 8-d latent action space (z_dim = action_dim = 8)."""
-    return Config(model=ModelConfig(
-        lgan=LGANModelConfig(z_dim=8),
-        rl_agent=RLAgentModelConfig(action_dim=8)))
+    """The shipped recipe (configs/config.yaml), as far as the port models
+    it, without reading YAML: the default widths with an 8-d latent action
+    space (z_dim = action_dim = 8), bf16_selective training at batch 64,
+    and the 200-epoch cosine autoencoder phase."""
+    return Config(
+        model=ModelConfig(lgan=LGANModelConfig(z_dim=8),
+                          rl_agent=RLAgentModelConfig(action_dim=8)),
+        training=TrainingConfig(
+            precision="bf16_selective", seed=42, batch_size=64,
+            num_workers=4, checkpoint_dir="./checkpoints", log_dir="./logs",
+            autoencoder=AETrainConfig(
+                epochs=200, lr_schedule="cosine", batch_size=64, lr=1e-3,
+                weight_decay=1e-5, scheduler_step=20, scheduler_gamma=0.5)),
+        logging=LoggingConfig(log_frequency=100, save_model_frequency=20))
 
 
 _TUPLE_FIELDS = {"encoder_dims", "decoder_dims", "generator_dims",

@@ -1,11 +1,12 @@
-"""Weight bridge from the JAX package's trees to the port.
+"""Weight bridge between the JAX package's trees and the port.
 
 ``model_from_numpy`` takes the JAX model tree with numpy leaves (for
 example ``jax.tree.map(np.asarray, net.init_model(key, config))``) and
 returns the port's model: the same nested dictionaries with tensors, kept
 to what serving reads (``ae``, ``lgan``, ``agent.actor`` and an optional
 ``gan_path``). Critics, target networks and optimizer state are dropped.
-``engine_from_numpy`` does the same for a folded engine tree.
+``engine_from_numpy`` does the same for a folded engine tree;
+``model_to_numpy`` maps the port's tree back to numpy.
 """
 
 from __future__ import annotations
@@ -15,32 +16,36 @@ import torch
 
 from gan_rl_3d_tpu_torch.device import resolve_device
 from gan_rl_3d_tpu_torch.models.inference import cast_engine
+from gan_rl_3d_tpu_torch.utils.checkpoint import to_numpy
+from gan_rl_3d_tpu_torch.utils.tree import tree_map
 
 _ENGINE_KEYS = ("encoder", "decoder", "generator", "actor", "discriminator")
 
 
-def _to_tensors(tree, device: torch.device):
+def tree_from_numpy(tree, device: torch.device):
     """Numpy (or array-like) leaves -> f32 tensors on ``device``; dicts,
     lists, tuples and None keep their structure."""
-    if isinstance(tree, dict):
-        return {k: _to_tensors(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_tensors(v, device) for v in tree)
-    if tree is None:
-        return None
-    return torch.from_numpy(np.array(tree, dtype=np.float32)).to(device)
+    return tree_map(lambda x: torch.from_numpy(
+        np.array(x, dtype=np.float32)).to(device), tree)
 
 
 def model_from_numpy(tree: dict, *, device: str | torch.device = "cuda") -> dict:
     dev = resolve_device(device)
     model = {
-        "ae": _to_tensors(tree["ae"], dev),
-        "lgan": _to_tensors(tree["lgan"], dev),
-        "agent": {"actor": _to_tensors(tree["agent"]["actor"], dev)},
+        "ae": tree_from_numpy(tree["ae"], dev),
+        "lgan": tree_from_numpy(tree["lgan"], dev),
+        "agent": {"actor": tree_from_numpy(tree["agent"]["actor"], dev)},
     }
     if tree.get("gan_path") is not None:
-        model["gan_path"] = _to_tensors(tree["gan_path"], dev)
+        model["gan_path"] = tree_from_numpy(tree["gan_path"], dev)
     return model
+
+
+def model_to_numpy(model: dict) -> dict:
+    """The inverse of ``model_from_numpy``: the port's tree (any subset of
+    ``ae``, ``lgan``, ``agent``, ``gan_path``) as f32 numpy arrays in the
+    JAX package's layout."""
+    return tree_map(to_numpy, model)
 
 
 def engine_from_numpy(tree: dict, *, device: str | torch.device = "cuda",
@@ -54,4 +59,4 @@ def engine_from_numpy(tree: dict, *, device: str | torch.device = "cuda",
     missing = [k for k in _ENGINE_KEYS if k not in tree]
     if missing:
         raise ValueError(f"not an inference engine: missing {missing}")
-    return cast_engine(_to_tensors(tree, dev), dtype)
+    return cast_engine(tree_from_numpy(tree, dev), dtype)

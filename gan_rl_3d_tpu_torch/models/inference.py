@@ -24,6 +24,8 @@ import torch
 from gan_rl_3d_tpu_torch import nn
 from gan_rl_3d_tpu_torch.models.rl_gan_net import check_gate_mode, gate
 from gan_rl_3d_tpu_torch.ops import encoder_kernel
+from gan_rl_3d_tpu_torch.utils.checkpoint import NumpyUnpickler, to_numpy
+from gan_rl_3d_tpu_torch.utils.tree import tree_map
 
 Tensor = torch.Tensor
 
@@ -105,25 +107,14 @@ def prepare_inference_engine(model: dict, *,
 def save_engine(path: str, engine: dict) -> None:
     """Write the engine as a pickle of f32 numpy arrays in the JAX engine's
     tree layout (what gan_rl_3d_tpu's save_engine writes for f32)."""
-    def to_numpy(x):
-        if isinstance(x, Tensor):
-            return x.detach().to("cpu", torch.float32).numpy()
-        if isinstance(x, (list, tuple)):
-            return type(x)(to_numpy(v) for v in x)
-        if isinstance(x, dict):
-            return {k: to_numpy(v) for k, v in x.items()}
-        return x
-
     with open(path, "wb") as f:
-        pickle.dump(to_numpy(engine), f)
+        pickle.dump(tree_map(to_numpy, engine), f)
 
 
-class _EngineUnpickler(pickle.Unpickler):
-    """Admits numpy arrays only: an engine file holds nothing else."""
+class _EngineUnpickler(NumpyUnpickler):
+    """Numpy arrays only, and a pointed refusal of a JAX bf16 engine."""
 
-    _ALLOWED = {("numpy", "ndarray"), ("numpy", "dtype"),
-                ("numpy._core.multiarray", "_reconstruct"),
-                ("numpy.core.multiarray", "_reconstruct")}
+    what = "engine"
 
     def find_class(self, module, name):
         if module.split(".")[0] == "ml_dtypes":
@@ -132,9 +123,6 @@ class _EngineUnpickler(pickle.Unpickler):
                 "by the JAX package cannot be read without ml_dtypes; "
                 "export the engine in float32 and load it with "
                 "dtype=torch.bfloat16 to serve in bf16")
-        if (module, name) not in self._ALLOWED:
-            raise ValueError(f"engine file refers to {module}.{name}; an "
-                             "engine holds numpy arrays only")
         return super().find_class(module, name)
 
 

@@ -19,7 +19,7 @@ Tensor = torch.Tensor
 def generator_apply(params: dict, state: dict, z: Tensor) -> Tensor:
     """z (B, z_dim) -> clean GFV (B, latent_dim) in [-1, 1]."""
     return bn_mlp_apply(params["mlp"], state["mlp"], z,
-                        final_activation=torch.tanh)
+                        final_activation=torch.tanh)[0]
 
 
 def discriminator_apply(params: dict, state: dict, gfv: Tensor, *,

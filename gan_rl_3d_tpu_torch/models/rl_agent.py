@@ -31,8 +31,8 @@ class TD3Config(NamedTuple):
 
 def actor_apply(params: dict, state: dict, s: Tensor, *,
                 cfg: TD3Config) -> Tensor:
-    a = bn_mlp_apply(params["mlp"], state["mlp"], s,
-                     final_activation=torch.tanh)
+    a, _ = bn_mlp_apply(params["mlp"], state["mlp"], s,
+                        final_activation=torch.tanh)
     return a * cfg.action_bound
 
 

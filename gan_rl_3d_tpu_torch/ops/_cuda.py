@@ -27,7 +27,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("encoder_pool", "nn_dist")
+SOURCES = ("encoder_pool", "nn_dist", "nn_grad")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -111,12 +111,11 @@ def require_cuda(t: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
 
 
-def refuse_grad(what: str, roadmap_entry: str, *tensors) -> None:
-    """The ported kernels have no backward yet: refuse inputs that need a
-    gradient rather than silently detaching them."""
+def refuse_grad(what: str, reason: str, *tensors) -> None:
+    """A kernel without a backward refuses inputs that need a gradient
+    rather than silently detaching them."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{what} on CUDA has no backward kernel yet ({roadmap_entry} in "
-            "ROADMAP.md); call it under torch.no_grad() or on detached "
-            "inputs")
+            f"{what} on CUDA has no backward ({reason}); call it under "
+            "torch.no_grad() or on detached inputs")

@@ -101,7 +101,8 @@ def _fused_encoder_pool_cuda(pc: Tensor, folded_layers, mask: Optional[Tensor],
     _cuda.require_cuda(pc, "fused_encoder_pool")
     weights = [w.to(compute_dtype).contiguous() for w, _ in folded_layers]
     biases = [b.to(torch.float32).contiguous() for _, b in folded_layers]
-    _cuda.refuse_grad("fused_encoder_pool", "K1 training use, queue 2",
+    _cuda.refuse_grad("fused_encoder_pool", "K1 serves the folded "
+                      "inference engine; training runs the unfolded encoder",
                       pc, *weights, *biases)
     dims = [3]
     for w, b in zip(weights, biases):

@@ -1,24 +1,33 @@
-"""The port's serving CLI (gan_rl_3d_tpu_torch.complete_clouds --engine) on
-the CPU, its device and checkpoint refusals, the engine-file guard, and
-the import hygiene of the port (no JAX anywhere in it)."""
+"""The port's CLIs on the CPU: serving (gan_rl_3d_tpu_torch.complete_clouds
+--engine) with its device and checkpoint refusals and the engine-file
+guard; training (gan_rl_3d_tpu_torch.train_rl_gan_net --phase
+autoencoder), whose checkpoint the JAX package reads back; and the import
+hygiene of the port (no JAX anywhere in it)."""
 
 import subprocess
 import sys
 import textwrap
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 import yaml
 
+from gan_rl_3d_tpu.models import autoencoder as jae
 from gan_rl_3d_tpu.models import inference as jinf
+from gan_rl_3d_tpu.utils import checkpoint as jckpt
 from gan_rl_3d_tpu_torch import complete_clouds as tcc
+from gan_rl_3d_tpu_torch.convert import model_to_numpy, tree_from_numpy
+from gan_rl_3d_tpu_torch.data import dataset as tdataset
 from gan_rl_3d_tpu_torch.data.dataset import load_ply
+from gan_rl_3d_tpu_torch.models import autoencoder as tae
 from gan_rl_3d_tpu_torch.models import inference as tinf
+from gan_rl_3d_tpu_torch.train_rl_gan_net import main as train_main
 from gan_rl_3d_tpu_torch.utils.ply import save_ply
-from test_torch_port_modules import N_POINTS, SMALL, small_model_tree
+from test_torch_port_modules import N_POINTS, SMALL, close, small_model_tree, t
 
 ROOT = Path(__file__).resolve().parent.parent
 CENTRE = np.array([10.0, -2.0, 3.0])
@@ -126,6 +135,49 @@ def test_engine_file_admits_numpy_arrays_only(tmp_path):
         pickle.dump({"encoder": print}, f)
     with pytest.raises(ValueError, match="numpy arrays only"):
         tinf.load_engine(str(tmp_path / "evil.pkl"), device="cpu")
+
+
+def test_cli_trains_phase_one_and_jax_reads_the_checkpoint(tmp_path):
+    data = tmp_path / "data"
+    tdataset.setup_dataset(str(data), synthetic=True, samples_per_category=2,
+                           num_points=N_POINTS)
+    cfg = {**SMALL, "training": {
+        "precision": "float32", "batch_size": 8,
+        "checkpoint_dir": str(tmp_path / "ckpt"),
+        "autoencoder": {"epochs": 2, "lr_schedule": "cosine"}},
+        "data": {"data_dir": str(data)}}
+    (tmp_path / "tiny.yaml").write_text(yaml.safe_dump(cfg))
+    res = subprocess.run(
+        [sys.executable, "-m", "gan_rl_3d_tpu_torch.train_rl_gan_net",
+         "--config", str(tmp_path / "tiny.yaml"), "--phase", "autoencoder",
+         "--device", "cpu"], capture_output=True, text=True, timeout=300,
+        cwd=str(ROOT))
+    assert res.returncode == 0, res.stderr
+    assert "AE epoch 2/2 train" in res.stdout and "val" in res.stdout
+    tree = jckpt.load_checkpoint(str(tmp_path / "ckpt" / "autoencoder_best"),
+                                 use_orbax=False)
+    assert int(tree["meta"]["epoch"]) == 1
+    assert int(tree["meta"]["phase_idx"]) == 0
+    ae_tree = tree["model"]["ae"]
+    pc = (np.random.RandomState(40).randn(3, N_POINTS, 3) * 0.5).astype(np.float32)
+    mask = np.ones((3, N_POINTS), np.float32)
+    mask[:, 200:] = 0.0
+    (ref, _), _ = jae.autoencoder_apply(ae_tree["params"], ae_tree["state"],
+                                        pc, mask)
+    port_ae = tree_from_numpy(ae_tree, torch.device("cpu"))
+    (out, _), _ = tae.autoencoder_apply(port_ae["params"], port_ae["state"],
+                                        t(pc), t(mask))
+    close(out, ref, 1e-5)
+    # and back: the port's tree as numpy is the checkpoint's tree
+    again = model_to_numpy({"ae": port_ae})["ae"]
+    for a, b in zip(jax.tree.leaves(again), jax.tree.leaves(ae_tree)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("phase", ["lgan", "rl_agent", "joint", "full"])
+def test_cli_refuses_phases_not_ported(phase):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        train_main(["--phase", phase, "--device", "cpu"])
 
 
 def test_port_imports_no_jax():

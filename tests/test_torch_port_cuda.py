@@ -1,5 +1,6 @@
-"""Kernel-vs-plain tests for the port's CUDA kernels (K1, K2, K3), and the
-wrappers' device routing. Imports no JAX, so on a GPU machine it runs as
+"""Kernel-vs-plain tests for the port's CUDA kernels (K1, K2, K3, K4, K5),
+the Chamfer gradient on the card, and the wrappers' device routing.
+Imports no JAX, so on a GPU machine it runs as
 
   python -m pytest --noconftest tests/test_torch_port_cuda.py
 
@@ -9,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from gan_rl_3d_tpu_torch.ops import _cuda
 from gan_rl_3d_tpu_torch.ops import chamfer, encoder_kernel as ek
 from gan_rl_3d_tpu_torch.ops.metrics import evaluate_completion
@@ -54,6 +56,12 @@ def test_cpu_tensors_take_the_plain_versions():
     assert torch.equal(d, rd) and torch.equal(i, ri)
     assert torch.equal(chamfer.nearest_min_distances(pc, pc),
                        chamfer.nearest_min_distances_plain(pc, pc))
+    g = torch.rand(d.shape, generator=torch.Generator().manual_seed(2))
+    da = chamfer.nearest_grad_a(pc, pc[:, :50], i, d, g)
+    assert torch.equal(da, chamfer.nearest_grad_a_plain(pc, pc[:, :50], i, d,
+                                                        g))
+    assert torch.equal(chamfer.nearest_grad_b(i, da, 50),
+                       chamfer.nearest_grad_b_plain(i, da, 50))
     assert dict(_cuda.launch_counts) == before
 
 
@@ -106,14 +114,75 @@ def test_nn_kernels_match_plain(cuda, n, m, masked):
 
 @pytest.mark.cuda
 def test_kernels_refuse_inputs_that_need_a_gradient(cuda):
+    """K2 has no backward, as in the JAX package; K3 has one (K4/K5)."""
     a, _ = _clouds(2, 64, 6, cuda)
     a.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="K4/K5"):
-        chamfer.nearest_distances(a, a.detach())
-    with pytest.raises(NotImplementedError, match="K4/K5"):
+    with pytest.raises(NotImplementedError, match="no backward"):
         chamfer.nearest_min_distances(a, a.detach())
     with torch.no_grad():
         chamfer.nearest_min_distances(a, a)
+    d, _ = chamfer.nearest_distances(a, a.detach() + 0.01)
+    d.sum().backward()
+    assert a.grad is not None and bool(torch.isfinite(a.grad).all())
+
+
+def _grad_inputs(bsz, n, m, seed, device, masked):
+    a, _ = _clouds(bsz, n, seed, device)
+    b, b_mask = _clouds(bsz, m, seed + 1, device)
+    bm = b_mask if masked else None
+    dist, idx = chamfer.nearest_distances(a, b, b_mask=bm)
+    g = 0.5 + torch.rand(bsz, n, generator=torch.Generator().manual_seed(seed))
+    return a, b, bm, dist, idx, g.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(2048, 2048), (1001, 777), (5000, 3)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_grad_kernels_match_plain(cuda, n, m, masked):
+    """K4 rounds as its plain version does; K5 sums in increasing i, the
+    plain scatter_add_ in another order: 1e-5 scaled by max(1, |ref|)."""
+    a, b, bm, dist, idx, g = _grad_inputs(3, n, m, 8, cuda, masked)
+    before = _cuda.launch_counts.copy()
+    da = chamfer.nearest_grad_a(a, b, idx, dist, g)
+    db = chamfer.nearest_grad_b(idx, da, m)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts["nn_gather"] == before["nn_gather"] + 1
+    assert _cuda.launch_counts["nn_scatter"] == before["nn_scatter"] + 1
+    for out, ref in ((da, chamfer.nearest_grad_a_plain(a, b, idx, dist, g)),
+                     (db, chamfer.nearest_grad_b_plain(idx, da, m))):
+        err = float((out - ref).abs().max() / ref.abs().max().clamp(min=1.0))
+        assert err <= 1e-5, err
+    # deterministic: the same inputs give the same bits
+    assert torch.equal(db, chamfer.nearest_grad_b(idx, da, m))
+    if bm is not None:
+        assert float(db[bm == 0].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_grad_kernels_check_their_inputs(cuda):
+    a, b, _, dist, idx, g = _grad_inputs(2, 64, 32, 9, cuda, False)
+    with pytest.raises(ValueError, match="int32"):
+        chamfer.nearest_grad_a(a, b, idx.long(), dist, g)
+    with pytest.raises(ValueError, match="expected"):
+        chamfer.nearest_grad_b(idx[:, :10], torch.zeros(2, 64, 3,
+                                                        device=cuda), 32)
+    with pytest.raises(ValueError, match="b on cpu"):
+        chamfer.nearest_grad_a(a, b.cpu(), idx, dist, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_chamfer_gradient_on_card_matches_cpu(cuda, masked):
+    """The autograd Function with the kernels against the same Function on
+    CPU copies (the plain versions). Distances differ in the last bits,
+    and g / dist carries that into the gradient: 1e-4 of its largest
+    element; points whose neighbour flips in a near-tie are left out."""
+    a, _ = _clouds(4, 2048, 10, cuda)
+    b, b_mask = _clouds(4, 1500, 11, cuda)
+    err, flipped, masked_grad = chip_smoke.chamfer_grad_vs_cpu(
+        a, b, b_mask if masked else None)
+    assert err <= 1e-4 and flipped <= 16, (err, flipped)
+    assert masked_grad == 0.0
 
 
 @pytest.mark.cuda
