@@ -7,27 +7,34 @@ Phases, each failing the run if it fails:
   1. device: require CUDA, print the card's name and power limit, build
      every kernel from csrc/ with nvcc (sm_90a), one process per source;
   2. kernels vs their plain PyTorch versions at the main paths' shapes
-     (B=64, N=M=2048, masked and unmasked): K1, K3, K2; K4 (gather) and K5
-     (scatter), K5 twice for identical bits; the Chamfer gradient by the
-     kernels against the same autograd Function on CPU copies;
+     (B=64, N=M=2048, masked and unmasked): K1, K6 (also at B=3, N=1500
+     with a fully masked cloud), K3, K2; K4 (gather) and K5 (scatter), K5
+     twice for identical bits; the Chamfer gradient by the kernels against
+     the same autograd Function on CPU copies;
   3. the serving path at full width: the flagship config with random
      weights from a fixed seed, ``complete`` against ``complete_fast``
-     (f32, all gate modes), the bf16 engine against f32, an engine file
-     served by ``gan_rl_3d_tpu_torch.complete_clouds --engine`` on .txt
-     and .ply clouds, and the completions scored by
-     ``evaluate_completion``; K1, K3 and K2 must launch in this phase;
+     (f32, all gate modes), the bf16 engine against f32, the int8 engine
+     against f32 and ``complete`` (all gate modes), f32 and int8 engine
+     files served by ``gan_rl_3d_tpu_torch.complete_clouds --engine`` on
+     .txt and .ply clouds, and the completions scored by
+     ``evaluate_completion``; K1, K6, K3 and K2 must launch in this phase;
   4. the training path at full width: a synthetic dataset written by the
      port, ``RLGANNetTrainer(...).train_autoencoder()`` for 2 epochs of
      2 steps at B=64 with the flagship recipe (bf16_selective), every
      loss finite, K3, K4 and K5 launched, the best checkpoint reloaded;
      then one f32 ``ae_train_step`` at B=8 on the card against the same
      step on the CPU (same weights and draws): loss and every gradient;
+     then the serving side on that checkpoint: ``gan_rl_3d_tpu_torch.
+     evaluate --checkpoint autoencoder_best --export-engine``, and
+     ``complete_clouds --checkpoint`` and ``--engine`` (the exported
+     engine) on a few files (K3 and K2 must launch);
   5. times: each kernel, its plain version, the least time the card could
      take (bound) and a library yardstick, at B=64 (and B=4096 for the
      serving kernels, B=512 for K4 and K5), the time per ``complete_fast``
-     call at B=64 and B=4096, and per ``ae_train_step`` at B=64 in f32 and
-     bf16_selective, with a torch.profiler trace of the step (device busy
-     time, idle share, launches, top kernels).
+     call at B=64 and B=4096 (f32, bf16 and int8 engines), and per
+     ``ae_train_step`` at B=64 in f32 and bf16_selective, with a
+     torch.profiler trace of the step (device busy time, idle share,
+     launches, top kernels).
 
 The next-to-last line is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}. Any failure raises and exits
@@ -50,10 +57,20 @@ import torch
 # the tensor cores, HBM3 bandwidth. They assume the full 700 W limit.
 PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
 
 TOL_F32 = 1e-4      # f32 kernel / engine vs plain, scaled by max(1, |ref|)
 TOL_BF16 = 2e-2     # bf16 vs its reference, relative to max |ref|
+# K6 vs its plain version: the int32 sums are exact and every rounding step
+# is the plain version's, so the expected error is 0; the bound is the
+# JAX package's kernel-vs-twin one (tests/test_fused_encoder.py:96-97)
+TOL_INT8_RTOL, TOL_INT8_ATOL = 1e-2, 1e-3
+# the int8 engine against f32: the GFV within 2e-2 of its largest element
+# (the JAX package's pooled-feature bound, test_fused_encoder.py:98-100),
+# clouds within 0.1 of the unfolded complete (test_fused_encoder.py:119-121)
+TOL_INT8_GFV = 2e-2
+TOL_INT8_PC = 0.1
 TOL_DIST = 1e-3     # |a|^2+|b|^2-2ab cancellation in f32
 TIE_GAP = 1e-4      # squared-distance gap below which an index may differ
 # K4 / K5 vs plain, scaled by max(1, |ref|): K4 rounds as its plain version
@@ -258,7 +275,7 @@ def phase_device():
     return device
 
 
-def phase_kernels(device, engine_f32, engine_bf16):
+def phase_kernels(device, engine_f32, engine_bf16, engine_int8):
     """Each kernel against its plain version at the main path's shapes."""
     from gan_rl_3d_tpu_torch.ops import chamfer, encoder_kernel as ek
 
@@ -285,6 +302,33 @@ def phase_kernels(device, engine_f32, engine_bf16):
               f"max abs err {worst_abs:.3e}")
         expect(worst <= tol, f"{name} disagrees with its plain version")
         errs[name] = worst_abs
+    torch.cuda.synchronize()
+
+    qenc = engine_int8["encoder_q"]
+    rpc, rmask = make_clouds(3, 1500, seed=9, device=device)
+    rmask[0] = 0.0  # a fully masked cloud pools to -inf
+    worst, n_diff, n_all = 0.0, 0, 0
+    for x, m in ((pc, None), (pc, mask), (rpc, None), (rpc, rmask)):
+        out = ek.fused_encoder_pool_int8(x, qenc, m)
+        ref = ek.fused_encoder_pool_int8_plain(x, qenc, m)
+        expect(out.shape == ref.shape
+               and torch.equal(torch.isneginf(out), torch.isneginf(ref))
+               and not bool((torch.isnan(out) | torch.isposinf(out)).any()),
+               "encoder_pool_int8: bad output")
+        fin = torch.isfinite(ref)
+        expect(torch.allclose(out[fin], ref[fin], rtol=TOL_INT8_RTOL,
+                              atol=TOL_INT8_ATOL),
+               "encoder_pool_int8 disagrees with its plain version")
+        worst = max(worst, float((out[fin] - ref[fin]).abs().max()))
+        n_diff += int((out != ref).sum())
+        n_all += out.numel()
+    expect(bool(torch.isneginf(out[0]).all()),
+           "encoder_pool_int8: a fully masked cloud is not -inf")
+    print(f"encoder_pool_int8: max abs err vs plain {worst:.3e} (bound rtol "
+          f"{TOL_INT8_RTOL:g}, atol {TOL_INT8_ATOL:g}; expected 0), {n_diff} "
+          f"of {n_all} elements differ (B={B_MAIN}, N={N_MAIN} and B=3, "
+          "N=1500, masked and unmasked)")
+    errs["encoder_pool_int8"] = worst
     torch.cuda.synchronize()
 
     a, _ = make_clouds(B_MAIN, N_MAIN, seed=2, device=device)
@@ -425,10 +469,44 @@ def phase_grad_kernels(device):
     return errs
 
 
-def phase_main(device, model, tmp: Path):
-    """The completion path at full width, counted launch by launch."""
+def write_scans(folder: Path, seed: int) -> list:
+    """Three scans of 1500, 2048 and 3000 points (.txt, .ply, .txt) far
+    from the origin, as a user's files would be."""
+    from gan_rl_3d_tpu_torch.utils.ply import save_ply
+
+    folder.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    inputs = []
+    for i, n in enumerate((1500, 2048, 3000)):
+        pts = (rng.randn(n, 3) * [1.0, 0.5, 0.3] + SCAN_CENTRE)
+        path = folder / f"scan_{i}.{'ply' if i == 1 else 'txt'}"
+        if path.suffix == ".ply":
+            save_ply(str(path), pts)
+        else:
+            np.savetxt(path, pts)
+        inputs.append(path)
+    return inputs
+
+
+def serve_files(inputs, out_dir: Path, args, n_out: int) -> None:
+    """Run ``complete_clouds`` on ``inputs`` with ``args`` and check every
+    PLY it writes: ``n_out`` finite points in the input's frame."""
     from gan_rl_3d_tpu_torch import complete_clouds
     from gan_rl_3d_tpu_torch.data.dataset import load_ply
+
+    complete_clouds.main([*map(str, inputs), *args, "--output-dir",
+                          str(out_dir)])
+    for src in inputs:
+        pts = load_ply(out_dir / f"{src.stem}_completed.ply")
+        expect(pts.shape == (n_out, 3) and np.isfinite(pts).all(),
+               f"served {src.name} ({args}): {pts.shape}")
+        # written in the input's frame: centred near the input's centroid
+        expect(np.abs(pts.mean(0) - SCAN_CENTRE).max() < 5.0,
+               f"served {src.name} not in the input frame")
+
+
+def phase_main(device, model, tmp: Path):
+    """The completion path at full width, counted launch by launch."""
     from gan_rl_3d_tpu_torch.models import inference, rl_gan_net
     from gan_rl_3d_tpu_torch.ops import _cuda
     from gan_rl_3d_tpu_torch.ops.metrics import evaluate_completion
@@ -463,33 +541,46 @@ def phase_main(device, model, tmp: Path):
           f"(tol {TOL_BF16:g})")
     expect(worst <= TOL_BF16, "bf16 engine disagrees with f32")
 
+    engine_q = inference.prepare_inference_engine(model, quantize_int8=True)
+    for mode in ("discriminator", "rl", "ae", "union"):
+        ref = rl_gan_net.complete(model, target, mask, cfg=cfg, gate_mode=mode)
+        f32 = inference.complete_fast(engine, target, mask, gate_mode=mode)
+        q = inference.complete_fast(engine_q, target, mask, gate_mode=mode)
+        expect(set(q) == set(ref), f"int8 {mode}: output keys differ")
+        gfv = rel_err(q["noisy_gfv"], f32["noisy_gfv"])
+        pc_err = max(float((q[k] - ref[k]).abs().max())
+                     for k in ("completed_pc", "ae_reconstruction"))
+        hq, hr, ties = q["hybrid_output"], ref["hybrid_output"], 0
+        if mode == "discriminator":
+            # a row's gate cannot flip where the reference margin exceeds
+            # how far the int8 engine moved the two scores
+            margin = (ref["rl_gan_score"] - ref["ae_score"])[:, 0].abs()
+            shift = ((q["rl_gan_score"] - ref["rl_gan_score"]).abs()
+                     + (q["ae_score"] - ref["ae_score"]).abs())[:, 0]
+            settled = margin > shift
+            hq, hr, ties = hq[settled], hr[settled], int((~settled).sum())
+        hyb = float((hq - hr).abs().max()) if hq.numel() else 0.0
+        print(f"complete_fast int8, gate {mode}: noisy_gfv vs f32 engine "
+              f"{gfv:.3e} of max (tol {TOL_INT8_GFV:g}); completed_pc / "
+              f"ae_reconstruction vs complete {pc_err:.3e}, hybrid_output "
+              f"{hyb:.3e} (tol {TOL_INT8_PC:g}; {ties} near-tie rows left "
+              "out)")
+        expect(gfv <= TOL_INT8_GFV and pc_err <= TOL_INT8_PC
+               and hyb <= TOL_INT8_PC, f"int8 engine disagrees ({mode})")
+
     # serve files through the CLI, as a user would
-    eng_path = tmp / "engine.pkl"
+    eng_path, q_path = tmp / "engine.pkl", tmp / "engine_q.pkl"
     inference.save_engine(str(eng_path), engine)
-    rng = np.random.RandomState(5)
-    inputs = []
-    for i, n in enumerate((1500, 2048, 3000)):
-        pts = (rng.randn(n, 3) * [1.0, 0.5, 0.3] + [10.0, -2.0, 3.0])
-        path = tmp / f"scan_{i}.{'ply' if i == 1 else 'txt'}"
-        if path.suffix == ".ply":
-            from gan_rl_3d_tpu_torch.utils.ply import save_ply
-            save_ply(str(path), pts)
-        else:
-            np.savetxt(path, pts)
-        inputs.append(path)
-    for mode, n_out in (("discriminator", N_MAIN), ("union", 2 * N_MAIN)):
-        out_dir = tmp / f"out_{mode}"
-        complete_clouds.main([*map(str, inputs), "--engine", str(eng_path),
-                              "--output-dir", str(out_dir), "--gate-mode",
-                              mode, "--device", device.type])
-        for src in inputs:
-            pts = load_ply(out_dir / f"{src.stem}_completed.ply")
-            expect(pts.shape == (n_out, 3) and np.isfinite(pts).all(),
-                   f"served {src.name} ({mode}): {pts.shape}")
-            # written in the input's frame: centred near the input's centroid
-            expect(np.abs(pts.mean(0) - [10.0, -2.0, 3.0]).max() < 5.0,
-                   f"served {src.name} not in the input frame")
-    print(f"complete_clouds --engine served {len(inputs)} files x 2 gate modes")
+    inference.save_engine(str(q_path), engine_q)
+    inputs = write_scans(tmp / "scans", seed=5)
+    for path, mode, n_out in ((eng_path, "discriminator", N_MAIN),
+                              (eng_path, "union", 2 * N_MAIN),
+                              (q_path, "discriminator", N_MAIN)):
+        serve_files(inputs, tmp / f"out_{path.stem}_{mode}",
+                    ["--engine", str(path), "--gate-mode", mode, "--device",
+                     device.type], n_out)
+    print(f"complete_clouds --engine served {len(inputs)} files: f32 engine "
+          "x 2 gate modes, int8 engine")
 
     completion = inference.complete_fast(engine, target, mask)["hybrid_output"]
     scores = evaluate_completion(
@@ -506,7 +597,7 @@ def phase_main(device, model, tmp: Path):
     for name in SERVING_KERNELS:
         expect(counts.get(name, 0) > 0, f"{name} never launched on the "
                "serving path")
-    return engine, engine_bf16, counts
+    return engine, engine_bf16, engine_q, counts
 
 
 def _flagship():
@@ -564,6 +655,55 @@ def phase_train(device, tmp: Path):
                "reloaded checkpoint differs from the trained model")
     print("autoencoder_best reloaded through the port's load_checkpoint")
     step_check(device, trainer.model["ae"])
+    return counts, cfg
+
+
+def phase_eval(device, tmp: Path, cfg):
+    """The serving side on phase 1's checkpoint, through the CLIs a user
+    calls: ``evaluate --checkpoint autoencoder_best --export-engine``, then
+    ``complete_clouds --checkpoint`` and ``--engine`` (the exported
+    engine) on a few files; counted launch by launch."""
+    import dataclasses
+
+    from gan_rl_3d_tpu_torch import evaluate
+    from gan_rl_3d_tpu_torch.config import load_config
+    from gan_rl_3d_tpu_torch.ops import _cuda
+
+    cfg = dataclasses.replace(cfg, training=dataclasses.replace(
+        cfg.training, results_dir=str(tmp / "results")))
+    cfg_path = tmp / "run.json"
+    cfg_path.write_text(json.dumps(dataclasses.asdict(cfg)))
+    expect(load_config(str(cfg_path)) == cfg, "config JSON round trip")
+    engine_path = tmp / "engine_eval.pkl"
+    inputs = write_scans(tmp / "scans_eval", seed=6)
+    torch.cuda.synchronize()
+    _cuda.launch_counts.clear()
+    t0 = time.perf_counter()
+    stats = evaluate.main(["--config", str(cfg_path), "--checkpoint",
+                           "autoencoder_best", "--num-export", "2",
+                           "--export-engine", str(engine_path), "--device",
+                           device.type])
+    dt = time.perf_counter() - t0
+    expect(len(stats) >= 5 and all(np.isfinite(v) for v in stats.values()),
+           f"evaluate: non-finite or missing metrics {stats}")
+    expect((tmp / "results" / "results_viewer.html").exists()
+           and len(list((tmp / "results" / "point_clouds").glob("*.ply")))
+           == 6, "evaluate: report or PLY samples missing")
+    print(f"evaluate --checkpoint autoencoder_best: {len(stats)} metrics in "
+          f"{dt:.2f}s, " + ", ".join(f"{k}={v:.6f}" for k, v in stats.items()))
+    for args in (["--checkpoint", "autoencoder_best"],
+                 ["--engine", str(engine_path)]):
+        serve_files(inputs, tmp / f"out_eval_{args[0][2:]}",
+                    [*args, "--config", str(cfg_path), "--device",
+                     device.type], N_MAIN)
+    print(f"complete_clouds --checkpoint autoencoder_best and --engine "
+          f"{engine_path.name} served {len(inputs)} files each")
+    torch.cuda.synchronize()
+    counts = dict(_cuda.launch_counts)
+    print(f"evaluation-path launches: {counts}")
+    for name in EVAL_KERNELS:
+        expect(counts.get(name, 0) > 0, f"{name} never launched on the "
+               "evaluation path")
     return counts
 
 
@@ -614,6 +754,8 @@ KERNELS = {
                          "gan_rl_3d_tpu/ops/encoder_kernel.py:151"),
     "encoder_pool_bf16": ("gan_rl_3d_tpu_torch/csrc/encoder_pool.cu",
                           "gan_rl_3d_tpu/ops/encoder_kernel.py:151"),
+    "encoder_pool_int8": ("gan_rl_3d_tpu_torch/csrc/encoder_pool_int8.cu",
+                          "gan_rl_3d_tpu/ops/encoder_kernel.py:249"),
     "nn_dist": ("gan_rl_3d_tpu_torch/csrc/nn_dist.cu",
                 "gan_rl_3d_tpu/ops/chamfer.py:121"),
     "nn_min": ("gan_rl_3d_tpu_torch/csrc/nn_dist.cu",
@@ -623,9 +765,11 @@ KERNELS = {
     "nn_scatter": ("gan_rl_3d_tpu_torch/csrc/nn_grad.cu",
                    "gan_rl_3d_tpu/ops/chamfer.py:309"),
 }
-SERVING_KERNELS = ("encoder_pool_f32", "encoder_pool_bf16", "nn_dist",
-                   "nn_min")
+SERVING_KERNELS = ("encoder_pool_f32", "encoder_pool_bf16",
+                   "encoder_pool_int8", "nn_dist", "nn_min")
 TRAINING_KERNELS = ("nn_dist", "nn_gather", "nn_scatter")
+EVAL_KERNELS = ("encoder_pool_f32", "nn_dist", "nn_min")
+SCAN_CENTRE = np.array([10.0, -2.0, 3.0])
 
 
 def encoder_bound(bsz, n, layers, bf16):
@@ -639,6 +783,25 @@ def encoder_bound(bsz, n, layers, bf16):
                  for w, b in layers)
     nbytes = bsz * n * 3 * 4 + wbytes + bsz * dims[-1] * 4
     return _bound(ops_s, nbytes)
+
+
+def int8_encoder_bound(bsz, n, qenc):
+    """K6: (ms, bound_by) from layer 0's f32 flop on the CUDA cores and the
+    int8 ops on the tensor cores, or the bytes; and the ms the row
+    quantization and dequantization would take on the CUDA cores at the
+    f32 rate, which the bound leaves out (per quantized layer: per input
+    activation an abs-max compare, a divide, a round and a two-sided clip;
+    per output two multiplies, an add and a ReLU)."""
+    w0, b0 = qenc["layer0"]
+    layers = qenc["layers_q"]
+    ops_s = (2 * bsz * n * w0.numel() / PEAK_F32
+             + 2 * bsz * n * sum(wq.numel() for wq, _, _ in layers)
+             / PEAK_INT8)
+    wbytes = sum(x.numel() * x.element_size()
+                 for x in (w0, b0, *[x for layer in layers for x in layer]))
+    nbytes = bsz * n * 3 * 4 + wbytes + bsz * layers[-1][0].shape[1] * 4
+    per_point = sum(5 * wq.shape[0] + 4 * wq.shape[1] for wq, _, _ in layers)
+    return (*_bound(ops_s, nbytes), bsz * n * per_point / PEAK_F32 * 1e3)
 
 
 def nn_bound(bsz, n, m, keep_idx):
@@ -667,7 +830,7 @@ def _bound(ops_s, nbytes):
             "operations" if ops_s >= bytes_s else "bytes")
 
 
-def phase_times(device, engine, engine_bf16):
+def phase_times(device, engine, engine_bf16, engine_q):
     from gan_rl_3d_tpu_torch.models import inference
     from gan_rl_3d_tpu_torch.ops import chamfer, encoder_kernel as ek
 
@@ -688,6 +851,16 @@ def phase_times(device, engine, engine_bf16):
                                       dtype == torch.bfloat16)
             rows[(name, bsz)] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
                                      bound_by=by, library_ms=None)
+        qenc = engine_q["encoder_q"]
+        reps = 20 if bsz == B_MAIN else 3
+        ms = timed_ms(lambda: ek.fused_encoder_pool_int8(pc, qenc), reps=reps)
+        plain = timed_ms(lambda: ek.fused_encoder_pool_int8_plain(pc, qenc),
+                         reps=reps)
+        bound, by, core_ms = int8_encoder_bound(bsz, N_MAIN, qenc)
+        rows[("encoder_pool_int8", bsz)] = dict(
+            ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+            library_ms=None, quantize_f32_ms=core_ms)
+        torch.cuda.empty_cache()
         chunk = 256
         reps = 20 if bsz == B_MAIN else 2
         for name, kernel, plain_fn, keep in (
@@ -708,13 +881,17 @@ def phase_times(device, engine, engine_bf16):
         torch.cuda.empty_cache()
     for (name, bsz), r in rows.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        extra = ("" if "quantize_f32_ms" not in r else
+                 f"; row (de)quantization on the CUDA cores alone "
+                 f"{r['quantize_f32_ms']:.4f} ms at the f32 rate")
         print(f"time {name} B={bsz}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), library {lib} ms")
+              f"({r['bound_by']}), library {lib} ms{extra}")
 
     for bsz, reps in ((B_MAIN, 20), (B_BIG, 3)):
         pc, mask = make_clouds(bsz, N_MAIN, seed=8, device=device)
-        for label, eng in (("f32", engine), ("bf16", engine_bf16)):
+        for label, eng in (("f32", engine), ("bf16", engine_bf16),
+                           ("int8", engine_q)):
             ms = timed_ms(lambda: inference.complete_fast(eng, pc, mask),
                           reps=reps, repeats=3)
             print(f"complete_fast {label} B={bsz}: {ms:.3f} ms per call, "
@@ -846,18 +1023,23 @@ def main() -> None:
                              device=device)
     errs = phase_kernels(device, inference.prepare_inference_engine(model),
                          inference.prepare_inference_engine(
-                             model, dtype=torch.bfloat16))
+                             model, dtype=torch.bfloat16),
+                         inference.prepare_inference_engine(
+                             model, quantize_int8=True))
     errs.update(phase_grad_kernels(device))
     with tempfile.TemporaryDirectory() as tmp:
-        engine, engine_bf16, serving = phase_main(device, model, Path(tmp))
-        training = phase_train(device, Path(tmp))
-    rows = phase_times(device, engine, engine_bf16)
+        engine, engine_bf16, engine_q, serving = phase_main(device, model,
+                                                            Path(tmp))
+        training, cfg = phase_train(device, Path(tmp))
+        evaluation = phase_eval(device, Path(tmp), cfg)
+    rows = phase_times(device, engine, engine_bf16, engine_q)
     rows.update(phase_train_times(device))
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         by_path = {"serving": serving.get(name, 0),
-                   "training": training.get(name, 0)}
+                   "training": training.get(name, 0),
+                   "evaluation": evaluation.get(name, 0)}
         row = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),

@@ -1,14 +1,19 @@
-"""Complete point clouds from files with a folded engine (the port of the
-root ``complete_clouds.py --engine`` route).
+"""Complete point clouds from files (the port of the root
+``complete_clouds.py``).
 
-Reads .txt/.pts/.ply/.h5 clouds, runs ``complete_fast`` on the card (or on
+Reads .txt/.pts/.ply/.h5 clouds, runs the completion on the card (or on
 the CPU with ``--device cpu``), and writes PLYs in each input's own
 coordinate frame (the unit-sphere normalisation is inverted on output).
+The model is an exported engine (``--engine``, f32 or int8, through
+``complete_fast``) or a training checkpoint (``--checkpoint NAME`` under
+``training.checkpoint_dir``, through the unfolded ``complete``, with the
+gate calibration sidecar only where it is scoped to that checkpoint).
 Inputs go in fixed-size chunks, the last one padded to the same shape.
-``--watch DIR`` keeps the engine loaded and completes each new file that
+``--watch DIR`` keeps the model loaded and completes each new file that
 appears in DIR.
 
   python -m gan_rl_3d_tpu_torch.complete_clouds --engine engine.pkl --output-dir out/ *.txt
+  python -m gan_rl_3d_tpu_torch.complete_clouds --checkpoint joint_best --config configs/config.yaml *.ply
   python -m gan_rl_3d_tpu_torch.complete_clouds --engine engine.pkl --watch incoming/ --output-dir out/
 """
 
@@ -22,11 +27,14 @@ import numpy as np
 import torch
 
 from gan_rl_3d_tpu_torch.config import flagship_config, load_config
+from gan_rl_3d_tpu_torch.convert import model_from_numpy
 from gan_rl_3d_tpu_torch.data.dataset import load_point_cloud, resample_with_mask
 from gan_rl_3d_tpu_torch.device import resolve_device
 from gan_rl_3d_tpu_torch.models import inference
+from gan_rl_3d_tpu_torch.models import rl_gan_net as net
 from gan_rl_3d_tpu_torch.train.gate import load_gate_calibration
 from gan_rl_3d_tpu_torch.utils import ply
+from gan_rl_3d_tpu_torch.utils.checkpoint import load_model_checkpoint
 
 _CLOUD_SUFFIXES = (".txt", ".pts", ".ply", ".h5")
 
@@ -47,19 +55,34 @@ def _load_framed(path, n_points, rng):
 def _build_fn(args, config, device):
     """(clouds, masks) numpy -> the chosen output, as a numpy array."""
     gate_mode, gate_bias = load_gate_calibration(
-        config.training.checkpoint_dir, checkpoint=None,
+        config.training.checkpoint_dir,
+        # an engine's source checkpoint is unknown: a sidecar applies as is
+        checkpoint=None if args.engine else args.checkpoint,
         default_mode=config.model.gate_mode,
         default_bias=config.model.gate_bias, verbose=True)
     if args.gate_mode is not None:
         gate_mode = args.gate_mode
         print(f"gate mode forced by --gate-mode: {gate_mode}")
-    engine = inference.load_engine(args.engine, device=device)
+    if args.engine:
+        engine = inference.load_engine(args.engine, device=device)
+
+        def run(pc, mask):
+            return inference.complete_fast(engine, pc, mask,
+                                           gate_mode=gate_mode,
+                                           gate_bias=gate_bias)
+    else:
+        tree, _ = load_model_checkpoint(config.training.checkpoint_dir,
+                                        args.checkpoint)
+        model = model_from_numpy(tree, device=device)
+        td3 = config.td3_config()
+
+        def run(pc, mask):
+            return net.complete(model, pc, mask, cfg=td3,
+                                gate_mode=gate_mode, gate_bias=gate_bias)
 
     def fn(clouds: np.ndarray, masks: np.ndarray) -> np.ndarray:
-        out = inference.complete_fast(
-            engine, torch.from_numpy(clouds).to(device),
-            torch.from_numpy(masks).to(device), gate_mode=gate_mode,
-            gate_bias=gate_bias)[args.output]
+        out = run(torch.from_numpy(clouds).to(device),
+                  torch.from_numpy(masks).to(device))[args.output]
         return out.float().cpu().numpy()
 
     return fn
@@ -146,7 +169,8 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--config", type=str, default=None,
                         help="YAML config (default: the flagship recipe)")
     parser.add_argument("--checkpoint", type=str, default=None,
-                        help="not supported yet: export an engine instead")
+                        help="checkpoint name under training.checkpoint_dir "
+                             "(a pickle of either package)")
     parser.add_argument("--engine", type=str, default=None,
                         help="exported deployment engine (.pkl)")
     parser.add_argument("--device", type=str, default="cuda",
@@ -177,20 +201,20 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None):
     parser = _parser()
     args = parser.parse_args(argv)
-    if args.checkpoint:
-        parser.error("--checkpoint is not supported by the port yet: orbax "
-                     "and optax-pickled checkpoints need JAX to read (the "
-                     "checkpoint reader in ROADMAP.md queue 1); export an "
-                     "engine with the JAX package's save_engine and pass "
-                     "--engine")
-    if not args.engine:
-        parser.error("pass --engine: serving a randomly initialized model "
-                     "would silently produce garbage")
+    if bool(args.checkpoint) == bool(args.engine):
+        parser.error("pass --checkpoint NAME or --engine FILE (one of "
+                     "them): serving a randomly initialized model would "
+                     "silently produce garbage")
     if bool(args.inputs) == bool(args.watch):
         parser.error("pass input files OR --watch DIR")
+    config = load_config(args.config) if args.config else flagship_config()
+    if args.checkpoint:
+        path = Path(config.training.checkpoint_dir) / args.checkpoint
+        if not path.is_file():
+            parser.error(f"no pickle checkpoint {path} (an orbax directory "
+                         "needs the reader in ROADMAP.md queue 1, item 1)")
     device = resolve_device(args.device)
 
-    config = load_config(args.config) if args.config else flagship_config()
     n_points = config.model.autoencoder.num_points
     Path(args.output_dir).mkdir(parents=True, exist_ok=True)
     fn = _build_fn(args, config, device)

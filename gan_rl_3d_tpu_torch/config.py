@@ -1,8 +1,8 @@
 """Typed configuration (gan_rl_3d_tpu/config.py).
 
-Frozen dataclasses for ``model.*``, the training fields the serving path
-and the autoencoder phase read, ``loss``, ``data``, ``evaluation`` and
-``logging``, with the JAX package's defaults and validation
+Frozen dataclasses for ``model.*``, the training fields the serving path,
+``evaluate`` and the autoencoder phase read, ``loss``, ``data``,
+``evaluation`` and ``logging``, with the JAX package's defaults and validation
 (gan_rl_3d_tpu/config.py:29-311). ``load_config`` reads the same YAML
 schema; sections and keys the port does not model yet (the LGAN, RL and
 joint training blocks but the exploration noise) are skipped.
@@ -11,6 +11,7 @@ joint training blocks but the exploration noise) are skipped.
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
@@ -89,6 +90,7 @@ class TrainingConfig:
     num_workers: int = 4
     checkpoint_dir: str = "./checkpoints"
     log_dir: str = "./logs"
+    results_dir: str = "./results"
     autoencoder: AETrainConfig = field(default_factory=AETrainConfig)
     rl_agent: RLTrainConfig = field(default_factory=RLTrainConfig)
 
@@ -152,7 +154,14 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class EvaluationConfig:
+    metrics: Tuple[str, ...] = ("chamfer_distance", "completion_ratio",
+                                "hausdorff_distance")
+    save_visualizations: bool = True
     eval_frequency: int = 10
+    fscore_threshold: float = 0.01
+    # reported beside the primary threshold (config.py:296-301)
+    fscore_thresholds: Tuple[float, ...] = (0.01, 0.02, 0.05)
+    completion_threshold: float = 0.03
 
 
 @dataclass(frozen=True)
@@ -205,7 +214,8 @@ def flagship_config() -> Config:
     """The shipped recipe (configs/config.yaml), as far as the port models
     it, without reading YAML: the default widths with an 8-d latent action
     space (z_dim = action_dim = 8), bf16_selective training at batch 64,
-    and the 200-epoch cosine autoencoder phase."""
+    the 200-epoch cosine autoencoder phase, and all five evaluation
+    metrics."""
     return Config(
         model=ModelConfig(lgan=LGANModelConfig(z_dim=8),
                           rl_agent=RLAgentModelConfig(action_dim=8)),
@@ -215,11 +225,15 @@ def flagship_config() -> Config:
             autoencoder=AETrainConfig(
                 epochs=200, lr_schedule="cosine", batch_size=64, lr=1e-3,
                 weight_decay=1e-5, scheduler_step=20, scheduler_gamma=0.5)),
+        evaluation=EvaluationConfig(metrics=(
+            "chamfer_distance", "completion_ratio", "hausdorff_distance",
+            "f_score", "emd")),
         logging=LoggingConfig(log_frequency=100, save_model_frequency=20))
 
 
 _TUPLE_FIELDS = {"encoder_dims", "decoder_dims", "generator_dims",
-                 "discriminator_dims", "hidden_dims"}
+                 "discriminator_dims", "hidden_dims", "metrics",
+                 "fscore_thresholds"}
 
 
 def _build(cls, raw: Optional[Dict[str, Any]]):
@@ -250,13 +264,18 @@ def _build(cls, raw: Optional[Dict[str, Any]]):
 
 
 def load_config(path: Optional[str] = None) -> Config:
-    """Load a gan_rl_3d_tpu YAML config (the reference schema)."""
+    """Load a gan_rl_3d_tpu YAML config (the reference schema). A ``.json``
+    file, which is YAML too, is read with the json module, so a config
+    written as JSON loads where PyYAML is not installed."""
     raw: Dict[str, Any] = {}
     if path is not None:
-        import yaml
-
         with open(path) as f:
-            raw = yaml.safe_load(f) or {}
+            if str(path).endswith(".json"):
+                raw = json.load(f)
+            else:
+                import yaml
+
+                raw = yaml.safe_load(f) or {}
     c = _build(Config, raw)
     if c.model.rl_agent.action_dim != c.model.lgan.z_dim:
         raise ValueError(

@@ -5,7 +5,7 @@ example ``jax.tree.map(np.asarray, net.init_model(key, config))``) and
 returns the port's model: the same nested dictionaries with tensors, kept
 to what serving reads (``ae``, ``lgan``, ``agent.actor`` and an optional
 ``gan_path``). Critics, target networks and optimizer state are dropped.
-``engine_from_numpy`` does the same for a folded engine tree;
+``engine_from_numpy`` does the same for a folded engine tree, int8 or not;
 ``model_to_numpy`` maps the port's tree back to numpy.
 """
 
@@ -22,11 +22,19 @@ from gan_rl_3d_tpu_torch.utils.tree import tree_map
 _ENGINE_KEYS = ("encoder", "decoder", "generator", "actor", "discriminator")
 
 
+def _leaf(x, device: torch.device) -> torch.Tensor:
+    x = np.asarray(x)
+    if x.dtype.kind in "iub":
+        return torch.from_numpy(np.array(x)).to(device)
+    return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
+
+
 def tree_from_numpy(tree, device: torch.device):
-    """Numpy (or array-like) leaves -> f32 tensors on ``device``; dicts,
-    lists, tuples and None keep their structure."""
-    return tree_map(lambda x: torch.from_numpy(
-        np.array(x, dtype=np.float32)).to(device), tree)
+    """Numpy (or array-like) leaves -> tensors on ``device``: floating
+    leaves as f32, integer and boolean leaves keep their type (the int8
+    weights of an int8 engine); dicts, lists, tuples and None keep their
+    structure."""
+    return tree_map(lambda x: _leaf(x, device), tree)
 
 
 def model_from_numpy(tree: dict, *, device: str | torch.device = "cuda") -> dict:
@@ -51,11 +59,9 @@ def model_to_numpy(model: dict) -> dict:
 def engine_from_numpy(tree: dict, *, device: str | torch.device = "cuda",
                       dtype: torch.dtype = torch.float32) -> dict:
     """A JAX-layout engine tree -> the port's engine on ``device``, cast to
-    ``dtype`` as prepare_inference_engine casts."""
+    ``dtype`` as prepare_inference_engine casts (``encoder_q`` stays as
+    it is)."""
     dev = resolve_device(device)
-    if "encoder_q" in tree:
-        raise ValueError("int8 engines (encoder_q) are not ported yet "
-                         "(kernel K6 in ROADMAP.md queue 2)")
     missing = [k for k in _ENGINE_KEYS if k not in tree]
     if missing:
         raise ValueError(f"not an inference engine: missing {missing}")

@@ -30,6 +30,7 @@
 #include <cuda_bf16.h>
 
 #include "common.cuh"
+#include "pool.cuh"
 
 namespace {
 
@@ -45,10 +46,6 @@ struct Layers {
   int dim[kMaxLayers + 1];     // dim[0] == 3
   int n;
 };
-
-__device__ __forceinline__ float neg_inf() {
-  return __int_as_float(static_cast<int>(0xff800000u));
-}
 
 template <bool kBf16>
 __device__ __forceinline__ float weight(const void* w, int i) {
@@ -66,26 +63,6 @@ __device__ __forceinline__ float act(float v) {
   } else {
     return v;
   }
-}
-
-// Signed-int order equals float order (for non-NaN values).
-__device__ __forceinline__ int ordered(float f) {
-  const int i = __float_as_int(f);
-  return i >= 0 ? i : i ^ 0x7fffffff;
-}
-
-__device__ __forceinline__ float unordered(int i) {
-  return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
-}
-
-__global__ void pool_init(int* pooled, int count) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < count) pooled[i] = ordered(neg_inf());
-}
-
-__global__ void pool_decode(const int* pooled, float* out, int count) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < count) out[i] = unordered(pooled[i]);
 }
 
 template <bool kBf16, bool kMasked>

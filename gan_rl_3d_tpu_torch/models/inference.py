@@ -4,12 +4,16 @@
 ``prepare_inference_engine`` folds every eval-mode normalisation into plain
 affine layers (BatchNorm into the preceding dense, the spectral-norm sigma
 into the discriminator weights) and casts to the compute dtype.
-``complete_fast`` drives it: the encoder through kernel K1, then the
-actor, generator, decoder and discriminator as plain matmuls.
+With ``quantize_int8`` the encoder's point-MLP is also quantized to int8
+(``ops.quantize.quantize_encoder``). ``complete_fast`` drives the engine:
+the encoder through kernel K1, or K6 for an int8 engine, then the actor,
+generator, decoder and discriminator as plain matmuls.
 
 The engine is a dictionary in the JAX engine's layout, so a JAX-written
-f32 engine file loads as it is:
+f32 engine file (int8 or not) loads as it is:
   encoder: {"layers": [(w, b)] * 5, "head": (w, b)}
+  encoder_q (int8 engines): {"layer0": (w0, b0),
+                             "layers_q": [(wq int8, s_w, b)] * 4}
   decoder, generator, actor[, gan_generator, gan_decoder]: [(w, b), ...]
   discriminator: [(w, b, ln_params or None), ...]
 """
@@ -23,7 +27,7 @@ import torch
 
 from gan_rl_3d_tpu_torch import nn
 from gan_rl_3d_tpu_torch.models.rl_gan_net import check_gate_mode, gate
-from gan_rl_3d_tpu_torch.ops import encoder_kernel
+from gan_rl_3d_tpu_torch.ops import encoder_kernel, quantize
 from gan_rl_3d_tpu_torch.utils.checkpoint import NumpyUnpickler, to_numpy
 from gan_rl_3d_tpu_torch.utils.tree import tree_map
 
@@ -57,7 +61,8 @@ def _fold_discriminator(params: dict, state: dict) -> list:
 def cast_engine(engine: dict, dtype: torch.dtype) -> dict:
     """Cast as the JAX package does (inference.py:111-143): the encoder's
     point-MLP weights and biases, and every other 2-D weight, to ``dtype``;
-    the remaining biases and the LayerNorm parameters stay f32."""
+    the remaining biases and the LayerNorm parameters stay f32. The int8
+    bundle ``encoder_q`` is left as it is."""
     def cast(x):
         if isinstance(x, Tensor) and x.ndim == 2:
             return x.to(dtype)
@@ -67,7 +72,9 @@ def cast_engine(engine: dict, dtype: torch.dtype) -> dict:
             return {k: cast(v) for k, v in x.items()}
         return x
 
-    out = cast(engine)
+    out = cast({k: v for k, v in engine.items() if k != "encoder_q"})
+    if "encoder_q" in engine:
+        out["encoder_q"] = engine["encoder_q"]
     out["encoder"]["layers"] = [(w.to(dtype), b.to(dtype))
                                 for w, b in out["encoder"]["layers"]]
     return out
@@ -75,9 +82,13 @@ def cast_engine(engine: dict, dtype: torch.dtype) -> dict:
 
 @torch.no_grad()
 def prepare_inference_engine(model: dict, *,
-                             dtype: torch.dtype = torch.float32) -> dict:
+                             dtype: torch.dtype = torch.float32,
+                             quantize_int8: bool = False) -> dict:
     """Fold the model into a deployment engine for ``complete_fast``
-    (inference.py:84-150, without the int8 option)."""
+    (inference.py:84-150). With ``quantize_int8`` the engine also carries
+    ``encoder_q``, the int8 bundle quantized from an f32 fold of the
+    encoder, which ``complete_fast`` runs instead of ``encoder.layers``;
+    the tail stays in ``dtype``."""
     ae_p, ae_s = model["ae"]["params"], model["ae"]["state"]
     if "attention" in ae_p["encoder"] or "mlp" not in ae_p["decoder"]:
         raise ValueError(
@@ -101,12 +112,18 @@ def prepare_inference_engine(model: dict, *,
             snap["generator"]["params"]["mlp"], snap["generator"]["state"]["mlp"])
         engine["gan_decoder"] = _fold_bn_mlp(
             snap["decoder"]["params"]["mlp"], snap["decoder"]["state"]["mlp"])
-    return cast_engine(engine, dtype)
+    engine = cast_engine(engine, dtype)
+    if quantize_int8:
+        folded_f32 = encoder_kernel.fold_encoder_params(ae_p["encoder"],
+                                                        ae_s["encoder"])
+        engine["encoder_q"] = quantize.quantize_encoder(folded_f32["layers"])
+    return engine
 
 
 def save_engine(path: str, engine: dict) -> None:
-    """Write the engine as a pickle of f32 numpy arrays in the JAX engine's
-    tree layout (what gan_rl_3d_tpu's save_engine writes for f32)."""
+    """Write the engine as a pickle of numpy arrays in the JAX engine's tree
+    layout (what gan_rl_3d_tpu's save_engine writes for f32): floating
+    leaves as f32, the int8 weights as int8."""
     with open(path, "wb") as f:
         pickle.dump(tree_map(to_numpy, engine), f)
 
@@ -128,8 +145,8 @@ class _EngineUnpickler(NumpyUnpickler):
 
 def load_engine(path: str, *, device: str | torch.device = "cuda",
                 dtype: torch.dtype = torch.float32) -> dict:
-    """Read an engine file (this package's or the JAX package's f32 one)
-    onto ``device``, cast to ``dtype``."""
+    """Read an engine file (this package's or the JAX package's f32 one,
+    int8 or not) onto ``device``, cast to ``dtype``."""
     from gan_rl_3d_tpu_torch.convert import engine_from_numpy
 
     with open(path, "rb") as f:
@@ -169,13 +186,20 @@ def complete_fast(engine: dict, pc: Tensor, mask: Optional[Tensor] = None, *,
 
     The compute dtype is the engine's (f32 or bf16, see
     ``prepare_inference_engine`` and ``load_engine``). The encoder is K1 on
-    a CUDA tensor in either dtype; the device of ``pc`` decides, there is
-    no switch."""
+    a CUDA tensor in either dtype, or K6 and the f32 head for an engine
+    with ``encoder_q`` (inference.py:196-201); the device of ``pc``
+    decides, there is no switch."""
     check_gate_mode(gate_mode)
     dtype = engine["encoder"]["layers"][0][0].dtype
     bsz = pc.shape[0]
-    noisy_gfv = encoder_kernel.encode_fused(pc, engine["encoder"], mask,
-                                            compute_dtype=dtype)
+    if "encoder_q" in engine:
+        noisy_gfv = encoder_kernel.apply_head(
+            encoder_kernel.fused_encoder_pool_int8(pc, engine["encoder_q"],
+                                                   mask),
+            engine["encoder"]["head"])
+    else:
+        noisy_gfv = encoder_kernel.encode_fused(pc, engine["encoder"], mask,
+                                                compute_dtype=dtype)
     z = _apply_mlp(engine["actor"], noisy_gfv, dtype, "tanh")
     if "gan_decoder" in engine:
         # the preserved serving GAN branch decodes through its own weights,

@@ -1,18 +1,20 @@
 """TD3 agent, inference half (gan_rl_3d_tpu/models/rl_agent.py).
 
 The actor 128 -> [400, 400, 300, 300] (+BN+ReLU) -> action_dim + tanh,
-scaled by ``action_bound``; action selection runs it in eval mode with
-opt-in Ornstein-Uhlenbeck exploration noise. The critics and the TD3
-update come with the RL-phase slice.
+scaled by ``action_bound``, with xavier-uniform weights and 0.01 biases;
+action selection runs it in eval mode with opt-in Ornstein-Uhlenbeck
+exploration noise. The critics and the TD3 update come with the RL-phase
+slice.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from gan_rl_3d_tpu_torch.models.common import bn_mlp_apply
+from gan_rl_3d_tpu_torch import nn
+from gan_rl_3d_tpu_torch.models.common import bn_mlp_apply, bn_mlp_init
 
 Tensor = torch.Tensor
 
@@ -27,6 +29,17 @@ class TD3Config(NamedTuple):
     ou_theta: float = 0.15
     ou_sigma: float = 0.2
     ou_dt: float = 1e-2
+
+
+def actor_init(generator: torch.Generator, state_dim: int = 128,
+               action_dim: int = 1,
+               hidden_dims: Sequence[int] = (400, 400, 300, 300)
+               ) -> Tuple[dict, dict]:
+    """(rl_agent.py:84-88)"""
+    p, s = bn_mlp_init(generator, state_dim, list(hidden_dims) + [action_dim],
+                       w_init=nn.xavier_uniform, bias_const=0.01,
+                       final_plain=True)
+    return {"mlp": p}, {"mlp": s}
 
 
 def actor_apply(params: dict, state: dict, s: Tensor, *,

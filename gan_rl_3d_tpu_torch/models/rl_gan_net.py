@@ -4,10 +4,10 @@
 (models/inference.py::complete_fast) is held against: encoder -> actor z ->
 generator -> decoder, the plain AE reconstruction, and the hybrid gate.
 
-The model is a dictionary in the JAX tree's layout, as ``convert.
-model_from_numpy`` builds it: ``ae``, ``lgan`` and ``agent.actor`` each
-hold ``params`` and ``state``, and an optional ``gan_path`` snapshot holds
-the serving GAN branch's generator and decoder.
+The model is a dictionary in the JAX tree's layout, as ``init_model`` and
+``convert.model_from_numpy`` build it: ``ae``, ``lgan`` and
+``agent.actor`` each hold ``params`` and ``state``, and an optional
+``gan_path`` snapshot holds the serving GAN branch's generator and decoder.
 """
 
 from __future__ import annotations
@@ -22,6 +22,25 @@ from gan_rl_3d_tpu_torch.models import latent_gan as lg
 from gan_rl_3d_tpu_torch.models import rl_agent as rl
 
 Tensor = torch.Tensor
+
+
+def init_model(generator: torch.Generator, config) -> dict:
+    """The serving model with fresh weights (rl_gan_net.py:38-58): ``ae``,
+    ``lgan`` and ``agent.actor``, drawn from ``generator`` in that order;
+    the critics, target networks and optimizer state wait for the RL
+    phase. ``config`` is a ``config.Config``."""
+    a, g, r = config.model.autoencoder, config.model.lgan, config.model.rl_agent
+    ae_p, ae_s = ae.autoencoder_init(
+        generator, a.input_dim, a.latent_dim, a.num_points, a.encoder_dims,
+        a.decoder_dims, a.encoder_type, a.decoder_type)
+    lg_p, lg_s = lg.lgan_init(generator, g.z_dim, g.latent_dim,
+                              g.generator_dims, g.discriminator_dims,
+                              spectral_norm=g.spectral_norm)
+    actor_p, actor_s = rl.actor_init(generator, r.state_dim, r.action_dim,
+                                     r.hidden_dims)
+    return {"ae": {"params": ae_p, "state": ae_s},
+            "lgan": {"params": lg_p, "state": lg_s},
+            "agent": {"actor": {"params": actor_p, "state": actor_s}}}
 
 
 def encode(model: dict, pc: Tensor, mask: Optional[Tensor] = None) -> Tensor:

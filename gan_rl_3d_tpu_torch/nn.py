@@ -4,7 +4,8 @@ Parameters are dictionaries of tensors in the JAX package's layout: dense
 weights are (in, out), so a layer is ``x @ w + b`` on channels-last input.
 Initialisers draw from an explicit ``torch.Generator``. BatchNorm runs in
 eval mode and in both training statistics modes of the JAX package;
-dropout and spectral-norm training come with the LGAN slice.
+LayerNorm and spectral norm have their inits and eval mode; dropout and
+the spectral-norm power iteration come with the LGAN slice.
 """
 
 from __future__ import annotations
@@ -35,6 +36,13 @@ def kaiming_uniform(generator: torch.Generator, shape: Tuple[int, int]
     fan_in = shape[0]
     return _uniform(generator, shape,
                     1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0)
+
+
+def xavier_uniform(generator: torch.Generator, shape: Tuple[int, int]
+                   ) -> Tensor:
+    """torch.nn.init.xavier_uniform_ for an (in, out) weight:
+    U(-sqrt(6 / (fan_in + fan_out)), +sqrt(6 / (fan_in + fan_out)))."""
+    return _uniform(generator, shape, math.sqrt(6.0 / (shape[0] + shape[1])))
 
 
 def torch_bias_uniform(generator: torch.Generator, fan_in: int,
@@ -146,6 +154,10 @@ def batchnorm_train(params: dict, state: dict, x: Tensor, *,
     return y.to(x.dtype), new_state
 
 
+def layernorm_init(dim: int) -> dict:
+    return {"scale": torch.ones(dim), "bias": torch.zeros(dim)}
+
+
 def layernorm(params: dict, x: Tensor, *, eps: float = 1e-5) -> Tensor:
     """LayerNorm over the last axis with the biased variance (nn.py:279-283)."""
     mean = x.mean(dim=-1, keepdim=True)
@@ -155,6 +167,16 @@ def layernorm(params: dict, x: Tensor, *, eps: float = 1e-5) -> Tensor:
 
 def leaky_relu(x: Tensor, leak: float = 0.2) -> Tensor:
     return torch.where(x >= 0, x, leak * x)
+
+
+def spectral_norm_init(generator: torch.Generator,
+                       w_shape: Tuple[int, int]) -> dict:
+    """Unit-norm singular-vector estimates for an (in, out) weight: u of
+    length out, v of length in (nn.py:304-317)."""
+    in_dim, out_dim = w_shape
+    u = torch.randn(out_dim, generator=generator)
+    v = torch.randn(in_dim, generator=generator)
+    return {"u": u / (u.norm() + 1e-12), "v": v / (v.norm() + 1e-12)}
 
 
 def spectral_norm_eval(w: Tensor, state: dict) -> Tensor:

@@ -1,13 +1,15 @@
 """Curriculum trainer, phase 1 (gan_rl_3d_tpu/train/trainer.py).
 
 ``RLGANNetTrainer`` holds the data splits, the model tree and the
-checkpoints. This slice runs the autoencoder phase: the train split lives
-on the device for the whole phase, each epoch is a loop of
-``steps.ae_train_step`` over a shuffled batch plan, validation runs with
-fixed per-batch hole draws, and the best and periodic checkpoints are
-written in the JAX package's pickle layout. The model tree holds ``ae``
-only; the LGAN, RL and joint phases are later slices (ROADMAP queue 1,
-items 12-15).
+checkpoints. The model tree is the serving model (``ae``, ``lgan``,
+``agent.actor`` and, from a checkpoint that has one, ``gan_path``), which
+``evaluate`` and ``complete_clouds --checkpoint`` read. This slice trains
+the autoencoder phase: the train split lives on the device for the whole
+phase, each epoch is a loop of ``steps.ae_train_step`` over a shuffled
+batch plan, validation runs with fixed per-batch hole draws, and the best
+and periodic checkpoints are written in the JAX package's pickle layout.
+The LGAN, RL and joint phases are later slices (ROADMAP queue 1, items
+12-15).
 """
 
 from __future__ import annotations
@@ -21,11 +23,12 @@ import numpy as np
 import torch
 
 from gan_rl_3d_tpu_torch.config import Config, load_config
-from gan_rl_3d_tpu_torch.convert import model_to_numpy, tree_from_numpy
+from gan_rl_3d_tpu_torch.convert import (model_from_numpy, model_to_numpy,
+                                         tree_from_numpy)
 from gan_rl_3d_tpu_torch.data.dataset import (BatchLoader, ShapeNetDataset,
                                               setup_dataset)
 from gan_rl_3d_tpu_torch.device import resolve_device
-from gan_rl_3d_tpu_torch.models import autoencoder as ae
+from gan_rl_3d_tpu_torch.models import rl_gan_net as net
 from gan_rl_3d_tpu_torch.ops import pointcloud as pc_ops
 from gan_rl_3d_tpu_torch.train import steps
 from gan_rl_3d_tpu_torch.utils import checkpoint as ckpt_lib
@@ -54,12 +57,11 @@ class RLGANNetTrainer:
 
         # weights are drawn on the CPU, so a seed gives the same model on
         # every device; the transforms' draws come from a device generator
-        a = cfg.model.autoencoder
-        params, state = ae.autoencoder_init(
-            torch.Generator().manual_seed(cfg.training.seed), a.input_dim,
-            a.latent_dim, a.num_points, a.encoder_dims, a.decoder_dims,
-            a.encoder_type, a.decoder_type)
-        self.model = {"ae": self._on_device(params, state)}
+        model = net.init_model(torch.Generator().manual_seed(cfg.training.seed),
+                               cfg)
+        self.model = {**tree_map(lambda v: v.to(self.device), model),
+                      "ae": self._on_device(model["ae"]["params"],
+                                            model["ae"]["state"])}
         self.generator = torch.Generator(self.device).manual_seed(
             cfg.training.seed + 1)
         self._save_freq = max(cfg.logging.save_model_frequency, 1)
@@ -193,26 +195,38 @@ class RLGANNetTrainer:
     # ------------------------------------------------------------------
 
     def save_checkpoint(self, name: str, epoch: int, phase: str) -> None:
-        """{"model": {"ae": ...}, "meta": {"epoch", "phase_idx"}} as a
-        pickle of numpy arrays, the JAX trainer's layout
-        (trainer.py:735-778 with use_orbax=False)."""
+        """{"model": {"ae", "lgan", "agent": {"actor"}}, "meta": {"epoch",
+        "phase_idx"}} as a pickle of numpy arrays, the JAX trainer's layout
+        (trainer.py:735-778 with use_orbax=False); a ``gan_path`` snapshot
+        goes to the ``<name>_ganpath`` sibling, and a stale sibling is
+        removed."""
+        path = self.checkpoint_dir / name
+        model = dict(self.model)
+        gan_path = model.pop("gan_path", None)
         ckpt_lib.save_checkpoint(
-            str(self.checkpoint_dir / name),
-            {"model": model_to_numpy(self.model),
-             "meta": {"epoch": np.int32(epoch),
-                      "phase_idx": np.int32(PHASES.index(phase))}})
+            str(path), {"model": model_to_numpy(model),
+                        "meta": {"epoch": np.int32(epoch),
+                                 "phase_idx": np.int32(PHASES.index(phase))}})
+        sibling = path.parent / (name + "_ganpath")
+        if gan_path is not None:
+            ckpt_lib.save_checkpoint(str(sibling), model_to_numpy(gan_path))
+        elif sibling.is_file():
+            sibling.unlink()
 
     def load_checkpoint(self, name: str) -> Tuple[int, str]:
-        """Restore the ``ae`` subtree of a pickle checkpoint (this
-        package's or the JAX package's); other subtrees are not ported
-        yet and are left out."""
-        tree = ckpt_lib.load_checkpoint(str(self.checkpoint_dir / name))
-        a = tree["model"]["ae"]
-        self.model = {"ae": self._on_device(
-            tree_from_numpy(a["params"], torch.device("cpu")),
-            tree_from_numpy(a["state"], torch.device("cpu")))}
-        epoch = int(tree["meta"]["epoch"])
-        phase = PHASES[int(tree["meta"]["phase_idx"])]
+        """Restore the serving model (``ae``, ``lgan``, ``agent.actor`` and
+        the ``<name>_ganpath`` sibling when there is one) from a pickle
+        checkpoint of this package or the JAX package; the agent's critics,
+        targets and optimizer state are not ported yet and are left out."""
+        model, meta = ckpt_lib.load_model_checkpoint(str(self.checkpoint_dir),
+                                                     name)
+        cpu = torch.device("cpu")
+        a = model["ae"]
+        self.model = {**model_from_numpy(model, device=self.device),
+                      "ae": self._on_device(tree_from_numpy(a["params"], cpu),
+                                            tree_from_numpy(a["state"], cpu))}
+        epoch = int(meta["epoch"])
+        phase = PHASES[int(meta["phase_idx"])]
         print(f"loaded checkpoint {self.checkpoint_dir / name} "
               f"(epoch {epoch}, phase {phase})")
         return epoch, phase

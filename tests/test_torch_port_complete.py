@@ -124,8 +124,12 @@ def test_engine_from_numpy_rejects_other_trees(models):
                         jinf.prepare_inference_engine(models["jax"][False]))
     engine = engine_from_numpy(jeng, device="cpu")
     assert set(engine) == set(jeng)
-    with pytest.raises(ValueError, match="K6"):
-        engine_from_numpy({**jeng, "encoder_q": {}}, device="cpu")
+    # an int8 engine's bundle converts with its int8 weights kept int8
+    qeng = jax.tree.map(np.asarray, jinf.prepare_inference_engine(
+        models["jax"][False], quantize_int8=True))
+    engine_q = engine_from_numpy(qeng, device="cpu")
+    wq, s_w, _ = engine_q["encoder_q"]["layers_q"][0]
+    assert wq.dtype == torch.int8 and s_w.dtype == torch.float32
     with pytest.raises(ValueError, match="missing"):
         engine_from_numpy({"encoder": jeng["encoder"]}, device="cpu")
 

@@ -1,5 +1,5 @@
-"""Kernel-vs-plain tests for the port's CUDA kernels (K1, K2, K3, K4, K5),
-the Chamfer gradient on the card, and the wrappers' device routing.
+"""Kernel-vs-plain tests for the port's CUDA kernels (K1-K6), the Chamfer
+gradient and the int8 engine on the card, and the wrappers' device routing.
 Imports no JAX, so on a GPU machine it runs as
 
   python -m pytest --noconftest tests/test_torch_port_cuda.py
@@ -14,6 +14,8 @@ import chip_smoke
 from gan_rl_3d_tpu_torch.ops import _cuda
 from gan_rl_3d_tpu_torch.ops import chamfer, encoder_kernel as ek
 from gan_rl_3d_tpu_torch.ops.metrics import evaluate_completion
+from gan_rl_3d_tpu_torch.ops.quantize import quantize_encoder
+from gan_rl_3d_tpu_torch.utils.tree import tree_map
 
 
 @pytest.fixture
@@ -88,6 +90,75 @@ def test_encoder_pool_kernel_matches_plain(cuda, dtype, tol, masked, n):
     err = float((out - ref).abs().max() / ref.abs().max().clamp(min=1.0))
     assert err <= tol, err
     assert sum(_cuda.launch_counts.values()) == sum(before.values()) + 1
+
+
+def _qenc(dims, seed, device):
+    return tree_map(lambda x: x.to(device),
+                    quantize_encoder(_layers(dims, seed)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [DIMS, (3, 16, 32, 32, 64, 32)])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n", [2048, 1000])
+def test_encoder_pool_int8_kernel_matches_plain(cuda, dims, masked, n):
+    """K6 against its plain version: expected equal bit for bit (exact int32
+    sums, the plain version's rounding steps); held to the JAX package's
+    kernel-vs-twin bound, rtol 1e-2 and atol 1e-3. A fully masked cloud
+    pools to -inf."""
+    qenc = _qenc(dims, 4, cuda)
+    pc, mask = _clouds(5, n, 5, cuda)
+    mask[1] = 0.0
+    m = mask if masked else None
+    before = _cuda.launch_counts["encoder_pool_int8"]
+    out = ek.fused_encoder_pool_int8(pc, qenc, m)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts["encoder_pool_int8"] == before + 1
+    ref = ek.fused_encoder_pool_int8_plain(pc, qenc, m)
+    assert torch.equal(torch.isneginf(out), torch.isneginf(ref))
+    fin = torch.isfinite(ref)
+    assert torch.allclose(out[fin], ref[fin], rtol=1e-2, atol=1e-3)
+    if masked:
+        assert bool(torch.isneginf(out[1]).all())
+
+
+@pytest.mark.cuda
+def test_encoder_pool_int8_checks_its_inputs(cuda):
+    pc, _ = _clouds(2, 64, 6, cuda)
+    with pytest.raises(ValueError, match="multiple of 4 and C of 8"):
+        ek.fused_encoder_pool_int8(pc, _qenc((3, 16, 20), 7, cuda))
+    qenc = _qenc(DIMS, 7, cuda)
+    wq, s_w, b = qenc["layers_q"][0]
+    with pytest.raises(ValueError, match="int8"):
+        ek.fused_encoder_pool_int8(
+            pc, {**qenc, "layers_q": [(wq.float(), s_w, b)]
+                 + qenc["layers_q"][1:]})
+    with pytest.raises(ValueError, match="device"):
+        ek.fused_encoder_pool_int8(pc, tree_map(lambda x: x.cpu(), qenc))
+
+
+@pytest.mark.cuda
+def test_int8_engine_on_card_matches_cpu(cuda):
+    """complete_fast with an int8 engine on the card (K6) against the same
+    engine on the CPU (the plain version): K6's pool equals the plain
+    one's, so only the f32 tail's sums differ, 1e-4 scaled by
+    max(1, |ref|)."""
+    from gan_rl_3d_tpu_torch.convert import model_from_numpy
+    from gan_rl_3d_tpu_torch.models import inference
+
+    cfg = chip_smoke._flagship()
+    model = model_from_numpy(chip_smoke.init_numpy_model(cfg, seed=1),
+                             device="cpu")
+    engine = inference.prepare_inference_engine(model, quantize_int8=True)
+    on_card = tree_map(lambda x: x.to(cuda), engine)
+    pc, mask = _clouds(4, 2048, 12)
+    ref = inference.complete_fast(engine, pc, mask, gate_mode="rl")
+    before = _cuda.launch_counts["encoder_pool_int8"]
+    out = inference.complete_fast(on_card, pc.to(cuda), mask.to(cuda),
+                                  gate_mode="rl")
+    assert _cuda.launch_counts["encoder_pool_int8"] == before + 1
+    for k in ref:
+        assert chip_smoke.scaled_err(out[k].cpu(), ref[k]) <= 1e-4, k
 
 
 @pytest.mark.cuda
