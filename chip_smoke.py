@@ -7,10 +7,13 @@ Phases, each failing the run if it fails:
   1. device: require CUDA, print the card's name and power limit, build
      every kernel from csrc/ with nvcc (sm_90a), one process per source;
   2. kernels vs their plain PyTorch versions at the main paths' shapes
-     (B=64, N=M=2048, masked and unmasked): K1, K6 (also at B=3, N=1500
-     with a fully masked cloud), K3, K2; K4 (gather) and K5 (scatter), K5
-     twice for identical bits; the Chamfer gradient by the kernels against
-     the same autograd Function on CPU copies;
+     (B=64, N=M=2048, masked and unmasked): K1 (also on an engine of odd
+     widths at B=1 and with a fully masked cloud), K6 (also at B=3,
+     N=1500 with a fully masked cloud), K3, K2; K4 (gather) and K5
+     (scatter), K5 bit for bit, also on adversarial targets (all on one,
+     all distinct, M > N, N > M, past shared memory, B=2 with
+     N=M=20000) and twice for identical bits; the Chamfer gradient by the
+     kernels against the same autograd Function on CPU copies;
   3. the serving path at full width: the flagship config with random
      weights from a fixed seed, ``complete`` against ``complete_fast``
      (f32, all gate modes), the bf16 engine against f32, the int8 engine
@@ -29,8 +32,9 @@ Phases, each failing the run if it fails:
      ``complete_clouds --checkpoint`` and ``--engine`` (the exported
      engine) on a few files (K3 and K2 must launch);
   5. times: each kernel, its plain version, the least time the card could
-     take (bound) and a library yardstick, at B=64 (and B=4096 for the
-     serving kernels, B=512 for K4 and K5), the time per ``complete_fast``
+     take (bound) and a library yardstick (K1's registers a thread beside
+     its time), at B=64 (and B=4096 for the serving kernels, B=512 for K4
+     and K5), the time per ``complete_fast``
      call at B=64 and B=4096 (f32, bf16 and int8 engines), and per
      ``ae_train_step`` at B=64 in f32 and bf16_selective, with a
      torch.profiler trace of the step (device busy time, idle share,
@@ -44,6 +48,7 @@ non-zero. Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -73,8 +78,8 @@ TOL_INT8_GFV = 2e-2
 TOL_INT8_PC = 0.1
 TOL_DIST = 1e-3     # |a|^2+|b|^2-2ab cancellation in f32
 TIE_GAP = 1e-4      # squared-distance gap below which an index may differ
-# K4 / K5 vs plain, scaled by max(1, |ref|): K4 rounds as its plain version
-# does; K5 sums in increasing i, the plain scatter_add_ in another order
+# K4 vs plain, scaled by max(1, |ref|): K4 rounds as its plain version does
+# (K5 and its plain version sum in the same order and must be equal)
 TOL_GRAD_KERNEL = 1e-5
 # Chamfer gradient, card vs CPU copies, relative to the largest element:
 # K3's distances differ from the plain version's in the last bits (another
@@ -250,6 +255,35 @@ def chunked(fn, bsz: int, chunk: int):
 # ---------------------------------------------------------------------------
 
 
+def ptxas_report(log: str) -> dict:
+    """nvcc -Xptxas -v output -> {kernel: "N registers, S bytes spill
+    stores, L bytes spill loads"}, with the template arguments of K1
+    (encoder_pool_kernel<tile, bf16, masked>) and K5 spelled out."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            k1 = re.search(r"encoder_pool_kernelILi(\d+)ELb(\d)ELb(\d)E", fn)
+            k5 = re.search(r"scatter_kernelILb(\d)E", fn)
+            short = re.search(r"\d+([a-z_]+_kernel)", fn)
+            fn = (f"encoder_pool_kernel<{k1.group(1)}, bf16={k1.group(2)}, "
+                  f"masked={k1.group(3)}>" if k1 else
+                  f"scatter_kernel<shared={k5.group(1)}>" if k5 else
+                  short.group(1) if short else fn)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            spill = f"{m.group(1)} B spill stores, {m.group(2)} B spill loads"
+            out[fn] = spill
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out[fn] = f"{m.group(1)} registers, " + out.get(fn, "")
+            fn = None
+    return out
+
+
 def phase_device():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -268,11 +302,41 @@ def phase_device():
     logs = _cuda.build()
     print(f"built {sorted(_cuda.SOURCES)} in {time.perf_counter() - t0:.1f}s")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for fn, info in ptxas_report(log).items():
+            print(f"  {name} {fn}: {info}")
     torch.cuda.synchronize()
     return device
+
+
+def odd_width_k1(device):
+    """K1 on an engine of odd widths, N=1000, masked, at B=1 and at B=3
+    with a fully masked cloud (-inf), f32 and bf16, against the plain
+    version; its widths and tile come from encoder_tile."""
+    from gan_rl_3d_tpu_torch.ops import encoder_kernel as ek
+
+    dims = (3, 24, 40, 72, 200, 8)
+    g = torch.Generator(device="cpu").manual_seed(17)
+    layers = [((torch.rand(k, c, generator=g) * 2 - 1) / k ** 0.5,
+               (torch.rand(c, generator=g) * 2 - 1) * 0.1)
+              for k, c in zip(dims[:-1], dims[1:])]
+    pc, mask = make_clouds(3, 1000, seed=18, device=device)
+    mask[1] = 0.0
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+        lay = [(w.to(device, dtype), b.to(device, dtype)) for w, b in layers]
+        for x, m in ((pc[:1], mask[:1]), (pc, mask)):
+            out = ek.fused_encoder_pool(x, lay, m, compute_dtype=dtype)
+            ref = ek.fused_encoder_pool_plain(x, lay, m, compute_dtype=dtype)
+            fin = torch.isfinite(ref)
+            expect(torch.equal(torch.isneginf(out), torch.isneginf(ref))
+                   and bool(fin.any()), f"K1 odd widths {dtype}: bad output")
+            e = (scaled_err(out[fin], ref[fin]) if dtype == torch.float32
+                 else rel_err(out[fin], ref[fin]))
+            expect(e <= tol, f"K1 odd widths {dtype}: err {e:.3e}")
+        expect(bool(torch.isneginf(out[1]).all()),
+               "K1: a fully masked cloud is not -inf")
+    print(f"encoder_pool at widths {dims} (tile {ek.encoder_tile(dims)}), "
+          "N=1000, masked, B=1 and B=3 with a fully masked cloud: f32 and "
+          "bf16 agree with their plain versions; the masked cloud is -inf")
 
 
 def phase_kernels(device, engine_f32, engine_bf16, engine_int8):
@@ -284,7 +348,7 @@ def phase_kernels(device, engine_f32, engine_bf16, engine_int8):
     for name, eng, dtype in (("encoder_pool_f32", engine_f32, torch.float32),
                              ("encoder_pool_bf16", engine_bf16,
                               torch.bfloat16)):
-        worst, worst_abs = 0.0, 0.0
+        worst, worst_abs, n_diff, n_all = 0.0, 0.0, 0, 0
         for m in (None, mask):
             out = ek.fused_encoder_pool(pc, eng["encoder"]["layers"], m,
                                         compute_dtype=dtype)
@@ -296,12 +360,16 @@ def phase_kernels(device, engine_f32, engine_bf16, engine_int8):
                  else rel_err(out, ref))
             worst = max(worst, e)
             worst_abs = max(worst_abs, float((out - ref).abs().max()))
+            n_diff += int((out != ref).sum())
+            n_all += out.numel()
         tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
         kind = "scaled" if dtype == torch.float32 else "relative"
         print(f"{name}: {kind} err vs plain {worst:.3e} (tol {tol:g}), "
-              f"max abs err {worst_abs:.3e}")
+              f"max abs err {worst_abs:.3e}, {n_diff} of {n_all} elements "
+              f"differ (B={B_MAIN}, N={N_MAIN}, masked and unmasked)")
         expect(worst <= tol, f"{name} disagrees with its plain version")
         errs[name] = worst_abs
+    odd_width_k1(device)
     torch.cuda.synchronize()
 
     qenc = engine_int8["encoder_q"]
@@ -415,9 +483,38 @@ def chamfer_grad_vs_cpu(a, b, b_mask=None):
     return err, int(bad_a.sum() + bad_b.sum()), masked_grad
 
 
+SCATTER_CASES = {  # name: (B, N, M, targets)
+    "all on target 0": (4, 2048, 2048, "zero"),
+    "all distinct": (4, 2048, 2048, "perm"),
+    "M > N": (4, 500, 3000, "rand"),
+    "N > M": (4, 3000, 100, "rand"),
+    "global scratch": (3, 5000, 4000, "rand"),
+    "B=2, N=M=20000": (2, 20000, 20000, "rand"),
+}
+
+
+def scatter_cases(device):
+    """(name, idx, da, m): adversarial inputs for K5, from a fixed seed."""
+    out = []
+    for k, (name, (bsz, n, m, kind)) in enumerate(SCATTER_CASES.items()):
+        g = torch.Generator(device=device).manual_seed(30 + k)
+        if kind == "zero":
+            idx = torch.zeros(bsz, n, dtype=torch.int32, device=device)
+        elif kind == "perm":
+            idx = torch.stack([torch.randperm(n, generator=g, device=device)
+                               for _ in range(bsz)]).to(torch.int32)
+        else:
+            idx = torch.randint(0, m, (bsz, n), generator=g, device=device,
+                                dtype=torch.int32)
+        da = torch.randn(bsz, n, 3, generator=g, device=device)
+        out.append((name, idx, da, m))
+    return out
+
+
 def phase_grad_kernels(device):
-    """K4 and K5 against their plain versions, K5's repeatability, and the
-    Chamfer gradient by the kernels against the same Function on the CPU."""
+    """K4 and K5 against their plain versions (K5 bit for bit, also on
+    adversarial targets), K5's repeatability, and the Chamfer gradient by
+    the kernels against the same Function on the CPU."""
     from gan_rl_3d_tpu_torch.ops import chamfer
 
     errs = {"nn_gather": 0.0, "nn_scatter": 0.0}
@@ -432,10 +529,10 @@ def phase_grad_kernels(device):
         expect(e <= TOL_GRAD_KERNEL, f"nn_gather disagrees ({e:.3e})")
         db = chamfer.nearest_grad_b(idx, da, N_MAIN)
         ref = chamfer.nearest_grad_b_plain(idx, da, N_MAIN)
-        e = scaled_err(db, ref)
         errs["nn_scatter"] = max(errs["nn_scatter"],
                                  float((db - ref).abs().max()))
-        expect(e <= TOL_GRAD_KERNEL, f"nn_scatter disagrees ({e:.3e})")
+        expect(torch.equal(db, ref), "nn_scatter differs from its ordered "
+               f"plain version ({int((db != ref).sum())} elements)")
         expect(torch.equal(db, chamfer.nearest_grad_b(idx, da, N_MAIN)),
                "nn_scatter: two launches on the same inputs differ")
         # ragged sizes, off every tile and chunk boundary
@@ -444,12 +541,19 @@ def phase_grad_kernels(device):
         expect(scaled_err(rda, chamfer.nearest_grad_a_plain(ra, rb, ri, rd,
                                                             rg))
                <= TOL_GRAD_KERNEL, "nn_gather ragged disagrees")
-        expect(scaled_err(chamfer.nearest_grad_b(ri, rda, 777),
-                          chamfer.nearest_grad_b_plain(ri, rda, 777))
-               <= TOL_GRAD_KERNEL, "nn_scatter ragged disagrees")
-    print(f"nn_gather: max abs err vs plain {errs['nn_gather']:.3e}; "
-          f"nn_scatter: {errs['nn_scatter']:.3e} (tol {TOL_GRAD_KERNEL:g} "
-          "scaled), bitwise repeatable")
+        expect(torch.equal(chamfer.nearest_grad_b(ri, rda, 777),
+                           chamfer.nearest_grad_b_plain(ri, rda, 777)),
+               "nn_scatter ragged differs from its plain version")
+    for name, idx, da, m in scatter_cases(device):
+        db = chamfer.nearest_grad_b(idx, da, m)
+        expect(torch.equal(db, chamfer.nearest_grad_b_plain(idx, da, m))
+               and torch.equal(db, chamfer.nearest_grad_b(idx, da, m)),
+               f"nn_scatter {name}: differs from its plain version or "
+               "between launches")
+    print(f"nn_gather: max abs err vs plain {errs['nn_gather']:.3e} (tol "
+          f"{TOL_GRAD_KERNEL:g} scaled); nn_scatter equal to its ordered "
+          f"plain version bit for bit and bitwise repeatable (B={B_MAIN} "
+          "masked and unmasked, ragged, " + ", ".join(SCATTER_CASES) + ")")
 
     worst = 0.0
     for masked in (False, True):
@@ -819,7 +923,7 @@ def gather_bound(bsz, n, m):
 
 def scatter_bound(bsz, n, m):
     """K5 reads idx and da once and writes db; the sum needs 3 adds a query
-    point (its O(N M) compares are this design's cost, not the function's)."""
+    point."""
     nbytes = (bsz * n + bsz * n * 3 + bsz * m * 3) * 4
     return _bound(bsz * n * 3 / PEAK_F32, nbytes)
 
@@ -849,8 +953,11 @@ def phase_times(device, engine, engine_bf16, engine_q):
                 pc, layers, compute_dtype=dtype), reps=reps)
             bound, by = encoder_bound(bsz, N_MAIN, layers,
                                       dtype == torch.bfloat16)
-            rows[(name, bsz)] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
-                                     bound_by=by, library_ms=None)
+            tile = ek.encoder_tile([3] + [w.shape[1] for w, _ in layers])
+            rows[(name, bsz)] = dict(
+                ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=None, tile=tile,
+                registers=ek.encoder_pool_registers(tile, dtype, False))
         qenc = engine_q["encoder_q"]
         reps = 20 if bsz == B_MAIN else 3
         ms = timed_ms(lambda: ek.fused_encoder_pool_int8(pc, qenc), reps=reps)
@@ -884,6 +991,9 @@ def phase_times(device, engine, engine_bf16, engine_q):
         extra = ("" if "quantize_f32_ms" not in r else
                  f"; row (de)quantization on the CUDA cores alone "
                  f"{r['quantize_f32_ms']:.4f} ms at the f32 rate")
+        if "registers" in r:
+            extra += (f"; {r['tile']}-point tile, {r['registers']} registers "
+                      "a thread")
         print(f"time {name} B={bsz}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), library {lib} ms{extra}")
@@ -949,8 +1059,12 @@ def phase_train_times(device):
                  lambda: chamfer.nearest_grad_b_plain(idx, da, N_MAIN),
                  lambda: acc.index_add_(0, flat, neg),
                  scatter_bound(bsz, N_MAIN, N_MAIN))):
+            # K5's plain version reads its longest segment on the host, so
+            # it cannot be captured in a graph: timed eagerly
             rows[(name, bsz)] = dict(
-                ms=graph_ms(kernel), plain_ms=graph_ms(plain),
+                ms=graph_ms(kernel),
+                plain_ms=(timed_ms(plain) if name == "nn_scatter"
+                          else graph_ms(plain)),
                 bound_ms=bound, bound_by=by, library_ms=graph_ms(library),
                 call_ms=timed_ms(kernel))
     for (name, bsz), r in rows.items():

@@ -67,9 +67,36 @@ def nearest_grad_a_plain(a: Tensor, b: Tensor, idx: Tensor, dist: Tensor,
 
 def nearest_grad_b_plain(idx: Tensor, da: Tensor, m: int) -> Tensor:
     """Plain version of K5: db_j = -sum_{i: idx_i = j} da_i, (B, M, 3)
-    (chamfer.py:348-352)."""
-    db = torch.zeros((da.shape[0], m, 3), dtype=da.dtype, device=da.device)
-    return db.scatter_add_(1, idx.long()[..., None].expand(-1, -1, 3), -da)
+    (chamfer.py:348-352), summed as the kernel sums: from +0 in float32,
+    over increasing i, then 0 - s.
+
+    A stable sort of the flat targets lines each target's points up in
+    increasing i; pass r adds, for every target at once, the r-th point of
+    its segment. Each element gets the kernel's sequence of f32 adds, so
+    the two agree bit for bit (indices outside [0, M) are skipped, as the
+    kernel skips them)."""
+    bsz, n = idx.shape
+    dev = da.device
+    key = idx.long() + m * torch.arange(bsz, device=dev)[:, None]
+    valid = ((idx >= 0) & (idx < m)).reshape(-1)
+    key = key.reshape(-1)[valid]
+    vals = da.float().reshape(-1, 3)[valid]
+    key, perm = torch.sort(key, stable=True)
+    vals = vals[perm]
+    counts = torch.bincount(key, minlength=bsz * m)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(key.numel(), device=dev) - starts[key]
+    # group the sorted points by rank (stable: targets stay unique per group)
+    rank, by_rank = torch.sort(rank, stable=True)
+    key, vals = key[by_rank], vals[by_rank]
+    bounds = torch.bincount(rank).cumsum(0).tolist() if rank.numel() else []
+    acc = torch.zeros((bsz * m, 3), dtype=torch.float32, device=dev)
+    lo = 0
+    for hi in bounds:
+        k = key[lo:hi]
+        acc[k] = acc[k] + vals[lo:hi]
+        lo = hi
+    return (torch.zeros((), device=dev) - acc).reshape(bsz, m, 3)
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -83,8 +110,10 @@ def _lib(name: str) -> ctypes.CDLL:
     if name == "nn_grad" and lib.grl_nn_grad_a.argtypes is None:
         lib.grl_nn_grad_a.argtypes = [p, p, p, p, p, i, i, i, p, p]
         lib.grl_nn_grad_a.restype = i
-        lib.grl_nn_grad_b.argtypes = [p, p, i, i, i, p, p]
+        lib.grl_nn_grad_b.argtypes = [p, p, i, i, i, p, p, p]
         lib.grl_nn_grad_b.restype = i
+        lib.grl_nn_grad_b_scratch.argtypes = [i, i]
+        lib.grl_nn_grad_b_scratch.restype = ctypes.c_longlong
     return lib
 
 
@@ -166,7 +195,8 @@ def nearest_grad_a(a: Tensor, b: Tensor, idx: Tensor, dist: Tensor,
 
 def nearest_grad_b(idx: Tensor, da: Tensor, m: int) -> Tensor:
     """K5: db (B, M, 3) with db_j = -sum_{i: idx_i = j} da_i, summed in
-    increasing i (deterministic: the same inputs give the same bits).
+    increasing i by a counting sort (deterministic: the same inputs give
+    the same bits, those of ``nearest_grad_b_plain``).
 
     The kernel on a CUDA tensor, the plain version on a CPU tensor."""
     if da.device.type == "cpu":
@@ -176,7 +206,7 @@ def nearest_grad_b(idx: Tensor, da: Tensor, m: int) -> Tensor:
         raise ValueError(f"nearest_grad_b: da must be (B, N, 3), got "
                          f"{tuple(da.shape)}")
     bsz, n, _ = da.shape
-    if not (1 <= bsz <= 65535 and n >= 1 and m >= 1):
+    if not (bsz >= 1 and n >= 1 and m >= 1):
         raise ValueError(f"nearest_grad_b: empty or oversized batch "
                          f"{tuple(da.shape)}, M={m}")
     da = _check_rows(da, (bsz, n, 3), torch.float32, da.device,
@@ -185,8 +215,12 @@ def nearest_grad_b(idx: Tensor, da: Tensor, m: int) -> Tensor:
                       "nearest_grad_b idx")
     db = torch.empty((bsz, m, 3), dtype=torch.float32, device=da.device)
     lib = _lib("nn_grad")
+    words = lib.grl_nn_grad_b_scratch(n, m)
+    scratch = (torch.empty((bsz, words), dtype=torch.int32, device=da.device)
+               if words else None)
     with torch.cuda.device(da.device):
         err = lib.grl_nn_grad_b(idx.data_ptr(), da.data_ptr(), bsz, n, m,
+                                None if scratch is None else scratch.data_ptr(),
                                 db.data_ptr(), _cuda.stream_of(da))
     _cuda.check(err, lib, "nn_scatter")
     _cuda.launch_counts["nn_scatter"] += 1

@@ -26,8 +26,11 @@ from gan_rl_3d_tpu_torch.ops.quantize import div127, int8_matmul
 Tensor = torch.Tensor
 
 _MAX_LAYERS = 8
-_TILE = 32
 _MAX_SMEM = 232448  # bytes of shared memory a block may use on Hopper
+# K1's instances: point tiles, the flagship's first; the 128-point one
+# stages its weights in two slabs of 2048 f32 (csrc/encoder_pool.cu)
+_TILES = (128, 32)
+_SLAB_WORDS = 2048
 
 
 def fold_bn(dense_params: dict, bn_params: dict, bn_state: dict,
@@ -79,13 +82,50 @@ def fused_encoder_pool_plain(pc: Tensor, folded_layers: List[Tuple[Tensor, Tenso
     return x.amax(dim=-2)
 
 
+def encoder_smem(dims, tile: int) -> int:
+    """Shared-memory bytes of K1's ``tile``-point instance for the widths
+    ``dims`` (3, C_1, ..., C_L), as ``csrc/encoder_pool.cu::make_layout``
+    lays it out: one activation buffer for the inputs of the even layers,
+    one for the odd ones (the last output is pooled from registers), the
+    weight slabs of a staged instance, one valid flag a point."""
+    dims = list(dims)[:-1]
+    words = (max(dims[0::2]) + max(dims[1::2], default=0) + 1) * tile
+    if tile >= 128:
+        words += 2 * _SLAB_WORDS
+    return 4 * words
+
+
+def encoder_tile(dims) -> int:
+    """The point tile of the K1 instance that takes the widths ``dims``: the
+    largest whose shared memory fits a block, or ValueError."""
+    for tile in _TILES:
+        if encoder_smem(dims, tile) <= _MAX_SMEM:
+            return tile
+    raise ValueError(
+        f"layer widths {tuple(dims)} exceed K1's shared memory: at its "
+        f"smallest tile of {_TILES[-1]} points it needs (the widest input "
+        "of an even layer + the widest of an odd layer + 1) x "
+        f"{_TILES[-1]} x 4 = {encoder_smem(dims, _TILES[-1])} bytes, more "
+        f"than the {_MAX_SMEM} a block may use")
+
+
 def _lib() -> ctypes.CDLL:
     lib = _cuda.library("encoder_pool")
     if lib.grl_encoder_pool.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.grl_encoder_pool.argtypes = [p, p, p, p, p, i, i, i, i, p, p, p]
+        lib.grl_encoder_pool.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p,
+                                         p]
         lib.grl_encoder_pool.restype = i
+        lib.grl_encoder_pool_registers.argtypes = [i, i, i]
+        lib.grl_encoder_pool_registers.restype = i
     return lib
+
+
+def encoder_pool_registers(tile: int, compute_dtype: torch.dtype,
+                           masked: bool) -> int:
+    """Registers a thread of K1's instance (``cudaFuncGetAttributes``)."""
+    return _lib().grl_encoder_pool_registers(
+        tile, int(compute_dtype == torch.bfloat16), int(masked))
 
 
 def _fused_encoder_pool_cuda(pc: Tensor, folded_layers, mask: Optional[Tensor],
@@ -116,9 +156,7 @@ def _fused_encoder_pool_cuda(pc: Tensor, folded_layers, mask: Optional[Tensor],
         if w.device != pc.device or b.device != pc.device:
             raise ValueError("weights must lie on the input's device")
         dims.append(w.shape[1])
-    if 2 * max(dims) * _TILE * 4 > _MAX_SMEM:
-        raise ValueError(f"layer width {max(dims)} exceeds the kernel's "
-                         "shared-memory tile")
+    tile = encoder_tile(dims)
     pc = pc.to(torch.float32).contiguous()
     if mask is not None:
         if mask.shape != (bsz, n) or mask.device != pc.device:
@@ -137,7 +175,8 @@ def _fused_encoder_pool_cuda(pc: Tensor, folded_layers, mask: Optional[Tensor],
             pc.data_ptr(), mask.data_ptr() if mask is not None else None,
             ctypes.addressof(w_ptrs), ctypes.addressof(b_ptrs),
             ctypes.addressof(c_dims), n_layers,
-            int(compute_dtype == torch.bfloat16), bsz, n, bits.data_ptr(),
+            int(compute_dtype == torch.bfloat16), tile, bsz, n,
+            bits.data_ptr(),
             out.data_ptr(), _cuda.stream_of(pc))
     _cuda.check(err, lib, "encoder_pool")
     name = "f32" if compute_dtype == torch.float32 else "bf16"

@@ -1,0 +1,185 @@
+#!/usr/bin/env python3
+"""A/B of two builds of the port's K1 (csrc/encoder_pool.cu) and K5
+(csrc/nn_grad.cu) on one NVIDIA GPU: this checkout's kernels, through
+their wrappers, against another checkout's, built from its sources.
+
+  python3 kernel_ab.py --other DIR [--kernels encoder_pool nn_grad]
+
+DIR is the root of the other checkout (for example the parent commit
+unpacked with ``git archive``). The other build is called through its own
+C entry points: ``grl_encoder_pool`` with or without the point tile
+(which it then takes from this checkout's ``encoder_tile``), and
+``grl_nn_grad_b`` with or without a global scratch (which it then sizes
+by its ``grl_nn_grad_b_scratch``). For each kernel it prints
+the count of output elements that differ between the two builds (K1 at
+B=64, N=2048 with the flagship engine's f32 and bf16 weights, masked and
+unmasked; K5 on the Chamfer backward's inputs at B=64 masked and
+unmasked, B=512, and the adversarial cases of chip_smoke.py), then times
+both in turns (other, this, this, other). Exits non-zero without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import torch
+
+import chip_smoke
+from gan_rl_3d_tpu_torch.ops import _cuda
+
+
+def build_other(root: Path, name: str, out_dir: Path) -> ctypes.CDLL:
+    src = root / "gan_rl_3d_tpu_torch" / "csrc" / f"{name}.cu"
+    lib = out_dir / f"libother_{name}.so"
+    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", str(lib),
+                    str(src)], check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(lib))
+    lib.takes_tile = "int bf16, int tile," in src.read_text()
+    return lib
+
+
+def other_encoder_pool(lib, pc, layers, mask, dtype):
+    from gan_rl_3d_tpu_torch.ops.encoder_kernel import encoder_tile
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.grl_encoder_pool.argtypes = ([p, p, p, p, p, i, i]
+                                     + [i] * lib.takes_tile + [i, i, p, p, p])
+    lib.grl_encoder_pool.restype = i
+    weights = [w.to(dtype).contiguous() for w, _ in layers]
+    biases = [b.float().contiguous() for _, b in layers]
+    dims = [3] + [w.shape[1] for w in weights]
+    bsz, n, _ = pc.shape
+    bits = torch.empty((bsz, dims[-1]), dtype=torch.int32, device=pc.device)
+    out = torch.empty((bsz, dims[-1]), device=pc.device)
+    w_ptrs = (p * len(weights))(*[w.data_ptr() for w in weights])
+    b_ptrs = (p * len(biases))(*[b.data_ptr() for b in biases])
+    c_dims = (i * len(dims))(*dims)
+    tile = [encoder_tile(dims)] if lib.takes_tile else []
+    err = lib.grl_encoder_pool(
+        pc.data_ptr(), None if mask is None else mask.data_ptr(),
+        ctypes.addressof(w_ptrs), ctypes.addressof(b_ptrs),
+        ctypes.addressof(c_dims), len(weights),
+        int(dtype == torch.bfloat16), *tile, bsz, n, bits.data_ptr(),
+        out.data_ptr(), _cuda.stream_of(pc))
+    if err:
+        raise RuntimeError(f"other encoder_pool: CUDA error {err}")
+    return out
+
+
+def other_scatter(lib, idx, da, m):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    with_scratch = hasattr(lib, "grl_nn_grad_b_scratch")
+    lib.grl_nn_grad_b.argtypes = [p, p, i, i, i] + [p] * with_scratch + [p, p]
+    lib.grl_nn_grad_b.restype = i
+    bsz, n = idx.shape
+    db = torch.empty((bsz, m, 3), device=da.device)
+    scratch = []
+    if with_scratch:
+        lib.grl_nn_grad_b_scratch.argtypes = [i, i]
+        lib.grl_nn_grad_b_scratch.restype = ctypes.c_longlong
+        words = lib.grl_nn_grad_b_scratch(n, m)
+        scratch = [torch.empty((bsz, words), dtype=torch.int32,
+                               device=da.device).data_ptr() if words else None]
+    err = lib.grl_nn_grad_b(idx.data_ptr(), da.data_ptr(), bsz, n, m,
+                            *scratch, db.data_ptr(), _cuda.stream_of(da))
+    if err:
+        raise RuntimeError(f"other nn_grad_b: CUDA error {err}")
+    return db
+
+
+def differ(x, y) -> int:
+    return int((x.view(torch.int32) != y.view(torch.int32)).sum())
+
+
+def in_turns(label, other_fn, this_fn, timer):
+    t = [timer(other_fn), timer(this_fn), timer(this_fn), timer(other_fn)]
+    print(f"  time {label}: other {t[0]:.4f} / {t[3]:.4f} ms, this "
+          f"{t[1]:.4f} / {t[2]:.4f} ms (other, this, this, other)")
+
+
+def ab_encoder_pool(lib, device):
+    from gan_rl_3d_tpu_torch.convert import model_from_numpy
+    from gan_rl_3d_tpu_torch.models import inference
+    from gan_rl_3d_tpu_torch.ops import encoder_kernel as ek
+
+    model = model_from_numpy(chip_smoke.init_numpy_model(
+        chip_smoke._flagship(), seed=0), device=device)
+    for dtype in (torch.float32, torch.bfloat16):
+        layers = inference.prepare_inference_engine(
+            model, dtype=dtype)["encoder"]["layers"]
+        name = "f32" if dtype == torch.float32 else "bf16"
+        pc, mask = chip_smoke.make_clouds(chip_smoke.B_MAIN,
+                                          chip_smoke.N_MAIN, 1, device)
+        n_diff, n_all = 0, 0
+        for m in (None, mask):
+            mine = ek.fused_encoder_pool(pc, layers, m, compute_dtype=dtype)
+            theirs = other_encoder_pool(lib, pc, layers, m, dtype)
+            n_diff += differ(mine, theirs)
+            n_all += mine.numel()
+        print(f"encoder_pool_{name}: {n_diff} of {n_all} elements differ "
+              f"from the other build (B={chip_smoke.B_MAIN}, "
+              f"N={chip_smoke.N_MAIN}, masked and unmasked)")
+        for bsz, reps in ((chip_smoke.B_MAIN, 20), (chip_smoke.B_BIG, 3)):
+            pc, _ = chip_smoke.make_clouds(bsz, chip_smoke.N_MAIN, 6, device)
+            in_turns(f"encoder_pool_{name} B={bsz}",
+                     lambda: other_encoder_pool(lib, pc, layers, None, dtype),
+                     lambda: ek.fused_encoder_pool(pc, layers,
+                                                   compute_dtype=dtype),
+                     lambda fn: chip_smoke.timed_ms(fn, reps=reps))
+            del pc
+            torch.cuda.empty_cache()
+
+
+def ab_scatter(lib, device):
+    from gan_rl_3d_tpu_torch.ops import chamfer
+
+    n = chip_smoke.N_MAIN
+    cases = []
+    for bsz, masked in ((chip_smoke.B_MAIN, False), (chip_smoke.B_MAIN, True),
+                        (chip_smoke.B_GRAD_BIG, False)):
+        a, b, _, dist, idx, g = chip_smoke.grad_inputs(bsz, n, n, 14, device,
+                                                       masked)
+        da = chamfer.nearest_grad_a(a, b, idx, dist, g)
+        cases.append((f"B={bsz}{' masked' if masked else ''}", idx, da, n))
+    cases += chip_smoke.scatter_cases(device)
+    for name, idx, da, m in cases:
+        mine = chamfer.nearest_grad_b(idx, da, m)
+        theirs = other_scatter(lib, idx, da, m)
+        print(f"nn_scatter {name}: {differ(mine, theirs)} of {mine.numel()} "
+              "elements differ from the other build")
+    for name, idx, da, m in cases[1:3]:
+        in_turns(f"nn_scatter {name} (device, CUDA graph)",
+                 lambda: other_scatter(lib, idx, da, m),
+                 lambda: chamfer.nearest_grad_b(idx, da, m),
+                 chip_smoke.graph_ms)
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--other", type=Path, required=True)
+    parser.add_argument("--kernels", nargs="+",
+                        default=["encoder_pool", "nn_grad"],
+                        choices=["encoder_pool", "nn_grad"])
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("kernel_ab: needs a CUDA device")
+    device = torch.device("cuda")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    _cuda.build(args.kernels)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in args.kernels:
+            lib = build_other(args.other, name, Path(tmp))
+            {"encoder_pool": ab_encoder_pool, "nn_grad": ab_scatter}[name](
+                lib, device)
+    torch.cuda.synchronize()
+
+
+if __name__ == "__main__":
+    main()

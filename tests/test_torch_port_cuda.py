@@ -92,6 +92,48 @@ def test_encoder_pool_kernel_matches_plain(cuda, dtype, tol, masked, n):
     assert sum(_cuda.launch_counts.values()) == sum(before.values()) + 1
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dims,bsz,n", [
+    ((3, 24, 40, 72, 200, 8), 1, 1000),   # odd widths, B=1
+    ((3, 24, 40, 72, 200, 8), 4, 1000),
+    ((3, 64, 512, 128), 3, 700),          # a 512-wide layer: 32-point tile
+    ((3, 512, 512, 96), 2, 300),
+    ((3, 907, 907, 8), 2, 100),           # the widest pair either takes
+    ((3, 100), 2, 77),                    # one layer
+])
+def test_encoder_pool_kernel_takes_every_width(cuda, dtype, tol, dims, bsz,
+                                               n):
+    """K1 at ragged widths and tiles, masked with the first cloud fully
+    masked (it pools to -inf) and unmasked; within 1e-4 scaled (f32) and
+    2e-2 relative (bf16) of the plain version."""
+    layers = [(w.to(dtype), b.to(dtype)) for w, b in _layers(dims, 15, cuda)]
+    pc, mask = _clouds(bsz, n, 16, cuda)
+    mask[0] = 0.0
+    for m in (None, mask):
+        before = _cuda.launch_counts.copy()
+        out = ek.fused_encoder_pool(pc, layers, m, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        assert sum(_cuda.launch_counts.values()) == sum(before.values()) + 1
+        ref = ek.fused_encoder_pool_plain(pc, layers, m, compute_dtype=dtype)
+        assert torch.equal(torch.isneginf(out), torch.isneginf(ref))
+        fin = torch.isfinite(ref)
+        if m is not None:
+            assert bool(torch.isneginf(out[0]).all())
+        if fin.any():
+            err = float((out[fin] - ref[fin]).abs().max()
+                        / ref[fin].abs().max().clamp(min=1.0))
+            assert err <= tol, err
+
+
+@pytest.mark.cuda
+def test_encoder_pool_kernel_refuses_what_no_tile_fits(cuda):
+    pc, _ = _clouds(1, 64, 17, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ek.fused_encoder_pool(pc, _layers((3, 908, 908, 8), 18, cuda))
+
+
 def _qenc(dims, seed, device):
     return tree_map(lambda x: x.to(device),
                     quantize_encoder(_layers(dims, seed)))
@@ -227,6 +269,36 @@ def test_grad_kernels_match_plain(cuda, n, m, masked):
     assert torch.equal(db, chamfer.nearest_grad_b(idx, da, m))
     if bm is not None:
         assert float(db[bm == 0].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("bsz,n,m", [(64, 2048, 2048), (3, 2501, 777)])
+def test_scatter_kernel_equals_ordered_plain(cuda, masked, bsz, n, m):
+    """K5 and its plain version add the same f32 values in the same order
+    (increasing i per target): equal bit for bit, on K3's indices."""
+    _, _, _, _, idx, _ = _grad_inputs(bsz, n, m, 13, cuda, masked)
+    da = torch.randn(bsz, n, 3, generator=torch.Generator().manual_seed(14))
+    da = da.to(cuda)
+    db = chamfer.nearest_grad_b(idx, da, m)
+    torch.cuda.synchronize()
+    assert torch.equal(db, chamfer.nearest_grad_b_plain(idx, da, m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(chip_smoke.SCATTER_CASES))
+def test_scatter_kernel_on_adversarial_targets(cuda, case):
+    """Every point on one target, all distinct, M > N, N > M, a cloud past
+    shared memory and B=2, N=M=20000: equal to the plain version, and two
+    launches give the same bits."""
+    _, idx, da, m = next(c for c in chip_smoke.scatter_cases(cuda)
+                         if c[0] == case)
+    before = _cuda.launch_counts["nn_scatter"]
+    db = chamfer.nearest_grad_b(idx, da, m)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts["nn_scatter"] == before + 1
+    assert torch.equal(db, chamfer.nearest_grad_b_plain(idx, da, m))
+    assert torch.equal(db, chamfer.nearest_grad_b(idx, da, m))
 
 
 @pytest.mark.cuda
