@@ -8,8 +8,10 @@ Phases, each failing the run if it fails:
      every kernel from csrc/ with nvcc (sm_90a), one process per source;
   2. kernels vs their plain PyTorch versions at the main paths' shapes
      (B=64, N=M=2048, masked and unmasked): K1 (also on an engine of odd
-     widths at B=1 and with a fully masked cloud), K6 (also at B=3,
-     N=1500 with a fully masked cloud), K3, K2; K4 (gather) and K5
+     widths at B=1 and with a fully masked cloud), K1-K5 at B=65,537
+     (N=M=16), K6 bit for bit (also at B=3, N=1500 with a fully masked
+     cloud, at ragged widths, and after an in-place weight edit), K3,
+     K2; K4 (gather) and K5
      (scatter), K5 bit for bit, also on adversarial targets (all on one,
      all distinct, M > N, N > M, past shared memory, B=2 with
      N=M=20000) and twice for identical bits; the Chamfer gradient by the
@@ -32,10 +34,10 @@ Phases, each failing the run if it fails:
      ``complete_clouds --checkpoint`` and ``--engine`` (the exported
      engine) on a few files (K3 and K2 must launch);
   5. times: each kernel, its plain version, the least time the card could
-     take (bound) and a library yardstick (K1's registers a thread beside
-     its time), at B=64 (and B=4096 for the serving kernels, B=512 for K4
-     and K5), the time per ``complete_fast``
-     call at B=64 and B=4096 (f32, bf16 and int8 engines), and per
+     take (bound) and a library yardstick (K1's and K6's registers a
+     thread, K6's shared memory, beside their times), at B=64 (and
+     B=4096 for the serving kernels, B=512 for K4 and K5), the time per
+     ``complete_fast`` call at B=64 and B=4096 (f32, bf16 and int8 engines), and per
      ``ae_train_step`` at B=64 in f32 and bf16_selective, with a
      torch.profiler trace of the step (device busy time, idle share,
      launches, top kernels).
@@ -67,10 +69,8 @@ PEAK_BYTES = 3.35e12
 
 TOL_F32 = 1e-4      # f32 kernel / engine vs plain, scaled by max(1, |ref|)
 TOL_BF16 = 2e-2     # bf16 vs its reference, relative to max |ref|
-# K6 vs its plain version: the int32 sums are exact and every rounding step
-# is the plain version's, so the expected error is 0; the bound is the
-# JAX package's kernel-vs-twin one (tests/test_fused_encoder.py:96-97)
-TOL_INT8_RTOL, TOL_INT8_ATOL = 1e-2, 1e-3
+# K6 vs its plain version: equal bit for bit (torch.equal), since the int32
+# sums are exact in any order and every rounding step is the plain version's
 # the int8 engine against f32: the GFV within 2e-2 of its largest element
 # (the JAX package's pooled-feature bound, test_fused_encoder.py:98-100),
 # clouds within 0.1 of the unfolded complete (test_fused_encoder.py:119-121)
@@ -97,6 +97,10 @@ B_MAIN, N_MAIN = 64, 2048
 B_BIG = 4096
 B_GRAD_BIG = 512
 B_STEP_CHECK = 8
+BIG_BATCH = 65537   # one more cloud than a grid's y dimension holds
+INT8_RAGGED = (3, 20, 36, 100, 8)  # K6 widths off every multiple of 32
+INT8_FLAGSHIP = (64, 128, 128, 256, 128)  # K6's compile-time instance
+INT8_DIVIDE_PAIRS = 1 << 31  # K6's divide against __fdiv_rn (about 0.5 s)
 TRACE_STEPS = 5     # ae_train_steps traced by torch.profiler
 TRACE_TOP = 12      # kernels listed by their device time
 
@@ -266,10 +270,13 @@ def ptxas_report(log: str) -> dict:
             fn = m.group(1)
             k1 = re.search(r"encoder_pool_kernelILi(\d+)ELb(\d)ELb(\d)E", fn)
             k5 = re.search(r"scatter_kernelILb(\d)E", fn)
+            k6 = re.search(r"encoder_pool_int8_kernelILb(\d)ELb(\d)E", fn)
             short = re.search(r"\d+([a-z_]+_kernel)", fn)
             fn = (f"encoder_pool_kernel<{k1.group(1)}, bf16={k1.group(2)}, "
                   f"masked={k1.group(3)}>" if k1 else
                   f"scatter_kernel<shared={k5.group(1)}>" if k5 else
+                  f"encoder_pool_int8_kernel<masked={k6.group(1)}, "
+                  f"flagship={k6.group(2)}>" if k6 else
                   short.group(1) if short else fn)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -339,6 +346,113 @@ def odd_width_k1(device):
           "bf16 agree with their plain versions; the masked cloud is -inf")
 
 
+def _int8_case(x, qenc, m, what):
+    """K6 against its plain version, bit for bit: (differing elements,
+    elements, the output)."""
+    from gan_rl_3d_tpu_torch.ops import encoder_kernel as ek
+
+    out = ek.fused_encoder_pool_int8(x, qenc, m)
+    ref = ek.fused_encoder_pool_int8_plain(x, qenc, m)
+    n_diff = int((out != ref).sum())
+    expect(out.shape == ref.shape and torch.equal(out, ref),
+           f"encoder_pool_int8 {what}: {n_diff} of {ref.numel()} elements "
+           "differ from the plain version (expected 0)")
+    return n_diff, out.numel(), out
+
+
+def int8_checks(device, qenc, pc, mask):
+    """K6 against its plain version with torch.equal: the main path's
+    shapes masked and unmasked, B=3 at N=1500 with a fully masked cloud,
+    the ragged widths INT8_RAGGED at N=1000 (B=1, and B=3 with a fully
+    masked cloud), and a call after an in-place edit of one wq (the memo
+    repacks); and K6's divide against the IEEE one on INT8_DIVIDE_PAIRS
+    quotients. Returns the largest absolute difference (0)."""
+    from gan_rl_3d_tpu_torch.ops import encoder_kernel as ek
+    from gan_rl_3d_tpu_torch.ops.quantize import quantize_encoder
+
+    rpc, rmask = make_clouds(3, 1500, seed=9, device=device)
+    rmask[0] = 0.0  # a fully masked cloud pools to -inf
+    n_diff, n_all = 0, 0
+    for x, m in ((pc, None), (pc, mask), (rpc, None), (rpc, rmask)):
+        d, n, out = _int8_case(x, qenc, m, f"B={x.shape[0]}")
+        n_diff, n_all = n_diff + d, n_all + n
+    expect(bool(torch.isneginf(out[0]).all()),
+           "encoder_pool_int8: a fully masked cloud is not -inf")
+    g = torch.Generator(device="cpu").manual_seed(19)
+    ragged = quantize_encoder([
+        ((torch.rand(k, c, generator=g) * 2 - 1) / k ** 0.5,
+         (torch.rand(c, generator=g) * 2 - 1) * 0.1)
+        for k, c in zip(INT8_RAGGED[:-1], INT8_RAGGED[1:])])
+    ragged = {"layer0": tuple(x.to(device) for x in ragged["layer0"]),
+              "layers_q": [tuple(x.to(device) for x in layer)
+                           for layer in ragged["layers_q"]]}
+    qpc, qmask = make_clouds(3, 1000, seed=20, device=device)
+    qmask[2] = 0.0
+    for x, m in ((qpc[:1], qmask[:1]), (qpc, qmask)):
+        d, n, out = _int8_case(x, ragged, m, f"widths {INT8_RAGGED}")
+        n_diff, n_all = n_diff + d, n_all + n
+    expect(bool(torch.isneginf(out[2]).all()),
+           "encoder_pool_int8 ragged: a fully masked cloud is not -inf")
+    before = out
+    packs = ek.packed_int8_encoder.packs
+    wq = ragged["layers_q"][1][0]
+    wq.copy_(-wq)
+    d, n, after = _int8_case(qpc, ragged, qmask, "after an in-place edit")
+    expect(ek.packed_int8_encoder.packs == packs + 1
+           and not torch.equal(after, before),
+           "encoder_pool_int8: an in-place weight edit did not repack")
+    bad = ek.int8_divide_mismatches(INT8_DIVIDE_PAIRS, 0, device)
+    expect(bad == 0, f"encoder_pool_int8: its divide differs from the IEEE "
+           f"one on {bad} of {INT8_DIVIDE_PAIRS} quotients")
+    print(f"encoder_pool_int8: its divide equals __fdiv_rn bit for bit on "
+          f"{INT8_DIVIDE_PAIRS} quotients (near-ties and all-ones mantissas "
+          "included)")
+    print(f"encoder_pool_int8: equal to its plain version bit for bit, "
+          f"{n_diff} of {n_all} elements differ (B={B_MAIN}, N={N_MAIN} and "
+          f"B=3, N=1500, masked and unmasked; widths {INT8_RAGGED}, N=1000, "
+          "B=1 and B=3 with a fully masked cloud); after an in-place edit "
+          "of one wq the bundle repacked and the result equals the plain "
+          "version's")
+    return 0.0
+
+
+def big_batch_checks(device, masked):
+    """B = BIG_BATCH clouds of N = M = 16 points, one more than grid.y
+    holds: K1 f32 (TOL_F32 scaled), K3 and K2 (TOL_DIST, settled indices
+    equal), K4 (TOL_GRAD_KERNEL scaled) and K5 (bit for bit) against their
+    plain versions, the whole Chamfer backward."""
+    from gan_rl_3d_tpu_torch.ops import chamfer, encoder_kernel as ek
+
+    bsz, n = BIG_BATCH, 16
+    a, a_mask = make_clouds(bsz, n, seed=21, device=device)
+    b, b_mask = make_clouds(bsz, n, seed=22, device=device)
+    am, bm = (a_mask, b_mask) if masked else (None, None)
+    g = torch.Generator(device="cpu").manual_seed(23)
+    layers = [((torch.rand(k, c, generator=g) * 2 - 1) / k ** 0.5)
+              .to(device) for k, c in ((3, 16), (16, 32))]
+    layers = [(w, torch.zeros(w.shape[1], device=device)) for w in layers]
+    e = scaled_err(ek.fused_encoder_pool(a, layers, am),
+                   ek.fused_encoder_pool_plain(a, layers, am))
+    expect(e <= TOL_F32, f"encoder_pool_f32 at B={bsz}: err {e:.3e}")
+    d, i = chamfer.nearest_distances(a, b, b_mask=bm)
+    rd, ri = chamfer.nearest_distances_plain(a, b, bm)
+    top2 = chamfer._sqdist(a, b, bm).topk(2, dim=-1, largest=False).values
+    settled = (top2[..., 1] - top2[..., 0]) > TIE_GAP
+    expect(float((d - rd).abs().max()) <= TOL_DIST
+           and int(((i != ri) & settled).sum()) == 0,
+           f"nn_dist at B={bsz} disagrees")
+    e = float((chamfer.nearest_min_distances(a, b)
+               - chamfer.nearest_min_distances_plain(a, b)).abs().max())
+    expect(e <= TOL_DIST, f"nn_min at B={bsz}: err {e:.3e}")
+    cot = 0.5 + torch.rand(bsz, n, generator=g).to(device)
+    da = chamfer.nearest_grad_a(a, b, i, d, cot)
+    e = scaled_err(da, chamfer.nearest_grad_a_plain(a, b, i, d, cot))
+    expect(e <= TOL_GRAD_KERNEL, f"nn_gather at B={bsz}: err {e:.3e}")
+    expect(torch.equal(chamfer.nearest_grad_b(i, da, n),
+                       chamfer.nearest_grad_b_plain(i, da, n)),
+           f"nn_scatter at B={bsz} differs from its plain version")
+
+
 def phase_kernels(device, engine_f32, engine_bf16, engine_int8):
     """Each kernel against its plain version at the main path's shapes."""
     from gan_rl_3d_tpu_torch.ops import chamfer, encoder_kernel as ek
@@ -370,33 +484,15 @@ def phase_kernels(device, engine_f32, engine_bf16, engine_int8):
         expect(worst <= tol, f"{name} disagrees with its plain version")
         errs[name] = worst_abs
     odd_width_k1(device)
+    for masked in (False, True):
+        big_batch_checks(device, masked)
+    print(f"B={BIG_BATCH}, N=M=16, masked and unmasked: encoder_pool_f32, "
+          "nn_dist, nn_min, nn_gather and nn_scatter agree with their plain "
+          "versions (nn_scatter bit for bit)")
     torch.cuda.synchronize()
 
-    qenc = engine_int8["encoder_q"]
-    rpc, rmask = make_clouds(3, 1500, seed=9, device=device)
-    rmask[0] = 0.0  # a fully masked cloud pools to -inf
-    worst, n_diff, n_all = 0.0, 0, 0
-    for x, m in ((pc, None), (pc, mask), (rpc, None), (rpc, rmask)):
-        out = ek.fused_encoder_pool_int8(x, qenc, m)
-        ref = ek.fused_encoder_pool_int8_plain(x, qenc, m)
-        expect(out.shape == ref.shape
-               and torch.equal(torch.isneginf(out), torch.isneginf(ref))
-               and not bool((torch.isnan(out) | torch.isposinf(out)).any()),
-               "encoder_pool_int8: bad output")
-        fin = torch.isfinite(ref)
-        expect(torch.allclose(out[fin], ref[fin], rtol=TOL_INT8_RTOL,
-                              atol=TOL_INT8_ATOL),
-               "encoder_pool_int8 disagrees with its plain version")
-        worst = max(worst, float((out[fin] - ref[fin]).abs().max()))
-        n_diff += int((out != ref).sum())
-        n_all += out.numel()
-    expect(bool(torch.isneginf(out[0]).all()),
-           "encoder_pool_int8: a fully masked cloud is not -inf")
-    print(f"encoder_pool_int8: max abs err vs plain {worst:.3e} (bound rtol "
-          f"{TOL_INT8_RTOL:g}, atol {TOL_INT8_ATOL:g}; expected 0), {n_diff} "
-          f"of {n_all} elements differ (B={B_MAIN}, N={N_MAIN} and B=3, "
-          "N=1500, masked and unmasked)")
-    errs["encoder_pool_int8"] = worst
+    errs["encoder_pool_int8"] = int8_checks(device, engine_int8["encoder_q"],
+                                            pc, mask)
     torch.cuda.synchronize()
 
     a, _ = make_clouds(B_MAIN, N_MAIN, seed=2, device=device)
@@ -964,9 +1060,13 @@ def phase_times(device, engine, engine_bf16, engine_q):
         plain = timed_ms(lambda: ek.fused_encoder_pool_int8_plain(pc, qenc),
                          reps=reps)
         bound, by, core_ms = int8_encoder_bound(bsz, N_MAIN, qenc)
+        packed = ek.packed_int8_encoder(qenc)
+        regs, local = ek.encoder_pool_int8_attributes(
+            False, packed.dims == INT8_FLAGSHIP)
         rows[("encoder_pool_int8", bsz)] = dict(
             ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-            library_ms=None, quantize_f32_ms=core_ms)
+            library_ms=None, quantize_f32_ms=core_ms, registers=regs,
+            local_bytes=local, smem_bytes=packed.data.numel())
         torch.cuda.empty_cache()
         chunk = 256
         reps = 20 if bsz == B_MAIN else 2
@@ -991,9 +1091,13 @@ def phase_times(device, engine, engine_bf16, engine_q):
         extra = ("" if "quantize_f32_ms" not in r else
                  f"; row (de)quantization on the CUDA cores alone "
                  f"{r['quantize_f32_ms']:.4f} ms at the f32 rate")
-        if "registers" in r:
+        if "tile" in r:
             extra += (f"; {r['tile']}-point tile, {r['registers']} registers "
                       "a thread")
+        elif "smem_bytes" in r:
+            extra += (f"; {r['registers']} registers a thread, "
+                      f"{r['local_bytes']} B of local memory, "
+                      f"{r['smem_bytes']} B of shared memory a block")
         print(f"time {name} B={bsz}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), library {lib} ms{extra}")

@@ -24,6 +24,9 @@ _ENGINE_KEYS = ("encoder", "decoder", "generator", "actor", "discriminator")
 
 def _leaf(x, device: torch.device) -> torch.Tensor:
     x = np.asarray(x)
+    if x.dtype == np.uint16:  # bf16 words (models.inference._EngineUnpickler)
+        return torch.from_numpy(x.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
     if x.dtype.kind in "iub":
         return torch.from_numpy(np.array(x)).to(device)
     return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
@@ -32,8 +35,9 @@ def _leaf(x, device: torch.device) -> torch.Tensor:
 def tree_from_numpy(tree, device: torch.device):
     """Numpy (or array-like) leaves -> tensors on ``device``: floating
     leaves as f32, integer and boolean leaves keep their type (the int8
-    weights of an int8 engine); dicts, lists, tuples and None keep their
-    structure."""
+    weights of an int8 engine), uint16 leaves (the raw words of a JAX bf16
+    engine's arrays) are viewed as bfloat16; dicts, lists, tuples and None
+    keep their structure."""
     return tree_map(lambda x: _leaf(x, device), tree)
 
 

@@ -24,6 +24,8 @@
 // and the TPU kernel's tile carry (chamfer.py:101-104) do. Any N and M
 // work: the ragged edge of a and b is masked here, not padded.
 
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
@@ -35,11 +37,13 @@ constexpr float kBig = 1e30f;
 template <bool kKeepIdx, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 nn_kernel(const float* __restrict__ a, const float* __restrict__ b,
-          const float* __restrict__ b_mask, int n, int m,
+          const float* __restrict__ b_mask, int n, int m, int blocks_per_cloud,
           float* __restrict__ dist, int* __restrict__ idx) {
   __shared__ float4 tile[kTileM];
-  const int cloud = blockIdx.y;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
+  // the batch is folded into grid.x (grid.y would cap it at 65,535)
+  const int cloud = blockIdx.x / blocks_per_cloud;
+  const int i = (blockIdx.x - cloud * blocks_per_cloud) * kThreads +
+                threadIdx.x;
   const bool live = i < n;
   const float* ai = a + (static_cast<size_t>(cloud) * n + (live ? i : 0)) * 3;
   const float ax = ai[0], ay = ai[1], az = ai[2];
@@ -84,17 +88,19 @@ nn_kernel(const float* __restrict__ a, const float* __restrict__ b,
 template <bool kKeepIdx>
 int launch(const float* a, const float* b, const float* b_mask, int batch,
            int n, int m, float* dist, int* idx, void* stream) {
-  if (batch < 1 || batch > 65535 || n < 1 || m < 1) {
+  const int blocks_per_cloud = (n + kThreads - 1) / kThreads;
+  if (batch < 1 || n < 1 || m < 1 ||
+      static_cast<long long>(blocks_per_cloud) * batch > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((n + kThreads - 1) / kThreads, batch);
+  const int grid = blocks_per_cloud * batch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b_mask) {
-    nn_kernel<kKeepIdx, true><<<grid, kThreads, 0, s>>>(a, b, b_mask, n, m,
-                                                       dist, idx);
+    nn_kernel<kKeepIdx, true><<<grid, kThreads, 0, s>>>(
+        a, b, b_mask, n, m, blocks_per_cloud, dist, idx);
   } else {
-    nn_kernel<kKeepIdx, false><<<grid, kThreads, 0, s>>>(a, b, b_mask, n, m,
-                                                        dist, idx);
+    nn_kernel<kKeepIdx, false><<<grid, kThreads, 0, s>>>(
+        a, b, b_mask, n, m, blocks_per_cloud, dist, idx);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -58,6 +58,7 @@
 //     through L1/L2. Indices outside [0, M) are skipped.
 // Any N and M: ragged edges are masked.
 
+#include <climits>
 #include <cstdint>
 
 #include "common.cuh"
@@ -76,9 +77,11 @@ __global__ void __launch_bounds__(kGatherThreads)
 gather_kernel(const float* __restrict__ a, const float* __restrict__ b,
               const int* __restrict__ idx, const float* __restrict__ dist,
               const float* __restrict__ g, int n, int m,
-              float* __restrict__ da) {
-  const int cloud = blockIdx.y;
-  const int i = blockIdx.x * kGatherThreads + threadIdx.x;
+              int blocks_per_cloud, float* __restrict__ da) {
+  // the batch is folded into grid.x (grid.y would cap it at 65,535)
+  const int cloud = blockIdx.x / blocks_per_cloud;
+  const int i =
+      (blockIdx.x - cloud * blocks_per_cloud) * kGatherThreads + threadIdx.x;
   if (i >= n) return;
   const size_t o = static_cast<size_t>(cloud) * n + i;
   const int j = idx[o];
@@ -302,10 +305,6 @@ scatter_kernel(const int* __restrict__ idx, const float* __restrict__ da,
   }
 }
 
-bool bad_shape(int batch, int n, int m) {
-  return batch < 1 || batch > 65535 || n < 1 || m < 1;
-}
-
 }  // namespace
 
 // a (B, N, 3), b (B, M, 3), idx (B, N) int32, dist (B, N), g (B, N), all
@@ -313,11 +312,14 @@ bool bad_shape(int batch, int n, int m) {
 GRL_EXPORT int grl_nn_grad_a(const float* a, const float* b, const int* idx,
                              const float* dist, const float* g, int batch,
                              int n, int m, float* da, void* stream) {
-  if (bad_shape(batch, n, m)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + kGatherThreads - 1) / kGatherThreads, batch);
-  gather_kernel<<<grid, kGatherThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(a, b, idx, dist, g, n,
-                                                       m, da);
+  const int blocks_per_cloud = (n + kGatherThreads - 1) / kGatherThreads;
+  if (batch < 1 || n < 1 || m < 1 ||
+      static_cast<long long>(blocks_per_cloud) * batch > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  gather_kernel<<<blocks_per_cloud * batch, kGatherThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      a, b, idx, dist, g, n, m, blocks_per_cloud, da);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -23,6 +23,7 @@ from __future__ import annotations
 import pickle
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from gan_rl_3d_tpu_torch import nn
@@ -129,24 +130,29 @@ def save_engine(path: str, engine: dict) -> None:
 
 
 class _EngineUnpickler(NumpyUnpickler):
-    """Numpy arrays only, and a pointed refusal of a JAX bf16 engine."""
+    """Numpy arrays only. A bf16 engine written by the JAX package pickles
+    its arrays with the dtype ``ml_dtypes.bfloat16``; a stand-in reads
+    them as their raw 16-bit words (``<u2``), which ``engine_from_numpy``
+    views as ``torch.bfloat16``, with no rounding anywhere. Any other
+    ``ml_dtypes`` type is refused."""
 
     what = "engine"
 
     def find_class(self, module, name):
         if module.split(".")[0] == "ml_dtypes":
+            if name == "bfloat16":
+                return np.uint16
             raise ValueError(
-                f"engine holds {module}.{name} arrays: a bf16 engine written "
-                "by the JAX package cannot be read without ml_dtypes; "
-                "export the engine in float32 and load it with "
-                "dtype=torch.bfloat16 to serve in bf16")
+                f"engine holds {module}.{name} arrays, which the port cannot "
+                "read without ml_dtypes; export the engine in float32 and "
+                "load it with dtype=torch.bfloat16 to serve in bf16")
         return super().find_class(module, name)
 
 
 def load_engine(path: str, *, device: str | torch.device = "cuda",
                 dtype: torch.dtype = torch.float32) -> dict:
-    """Read an engine file (this package's or the JAX package's f32 one,
-    int8 or not) onto ``device``, cast to ``dtype``."""
+    """Read an engine file (this package's or the JAX package's, f32, bf16
+    or int8) onto ``device``, cast to ``dtype``."""
     from gan_rl_3d_tpu_torch.convert import engine_from_numpy
 
     with open(path, "rb") as f:

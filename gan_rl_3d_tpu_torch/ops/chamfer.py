@@ -125,8 +125,8 @@ def _check_clouds(a: Tensor, b: Tensor, what: str) -> Tuple[Tensor, Tensor]:
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
     if b.device != a.device:
         raise ValueError(f"{what}: a on {a.device}, b on {b.device}")
-    if not (1 <= a.shape[0] <= 65535 and a.shape[1] >= 1 and b.shape[1] >= 1):
-        raise ValueError(f"{what}: empty or oversized batch "
+    if not (a.shape[0] >= 1 and a.shape[1] >= 1 and b.shape[1] >= 1):
+        raise ValueError(f"{what}: empty batch "
                          f"{tuple(a.shape)}, {tuple(b.shape)}")
     return (a.to(torch.float32).contiguous(), b.to(torch.float32).contiguous())
 
@@ -207,7 +207,7 @@ def nearest_grad_b(idx: Tensor, da: Tensor, m: int) -> Tensor:
                          f"{tuple(da.shape)}")
     bsz, n, _ = da.shape
     if not (bsz >= 1 and n >= 1 and m >= 1):
-        raise ValueError(f"nearest_grad_b: empty or oversized batch "
+        raise ValueError(f"nearest_grad_b: empty batch "
                          f"{tuple(da.shape)}, M={m}")
     da = _check_rows(da, (bsz, n, 3), torch.float32, da.device,
                      "nearest_grad_b da")

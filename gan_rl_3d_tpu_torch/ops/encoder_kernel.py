@@ -6,7 +6,8 @@ BatchNorm (eval mode) folds into the preceding dense layer:
 
 ``fused_encoder_pool`` applies the folded point-MLP and the masked global
 max-pool; ``fused_encoder_pool_int8`` does the same with the int8 bundle of
-``ops.quantize.quantize_encoder``. On a CUDA tensor they launch the
+``ops.quantize.quantize_encoder``, which K6 reads as laid out by
+``pack_int8_encoder`` (once per bundle). On a CUDA tensor they launch the
 hand-written kernels ``csrc/encoder_pool.cu`` (K1) and
 ``csrc/encoder_pool_int8.cu`` (K6); on a CPU tensor they run
 ``fused_encoder_pool_plain`` and ``fused_encoder_pool_int8_plain``, the
@@ -15,7 +16,10 @@ same arithmetic in plain PyTorch.
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import weakref
+from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import torch
@@ -136,9 +140,8 @@ def _fused_encoder_pool_cuda(pc: Tensor, folded_layers, mask: Optional[Tensor],
     if pc.ndim != 3 or pc.shape[-1] != 3:
         raise ValueError(f"pc must be (B, N, 3), got {tuple(pc.shape)}")
     bsz, n, _ = pc.shape
-    if not (1 <= bsz <= 65535 and n >= 1):
-        raise ValueError(f"batch must be in [1, 65535] and N >= 1, got "
-                         f"{tuple(pc.shape)}")
+    if bsz < 1 or n < 1:
+        raise ValueError(f"empty batch {tuple(pc.shape)}")
     n_layers = len(folded_layers)
     if not 1 <= n_layers <= _MAX_LAYERS:
         raise ValueError(f"1..{_MAX_LAYERS} layers supported, got {n_layers}")
@@ -223,24 +226,182 @@ def fused_encoder_pool_int8_plain(pc: Tensor, qenc: dict,
     return y.amax(dim=-2)
 
 
-def pack_int8_weight(wq: Tensor) -> Tensor:
-    """(K, C) int8 -> (K / 4, C) int32 whose byte j of word [k4, c] is
-    wq[4 k4 + j, c] (little-endian): one word feeds one __dp4a in K6."""
-    k, c = wq.shape
-    return (wq.reshape(k // 4, 4, c).transpose(1, 2).contiguous()
-            .view(torch.int32).reshape(k // 4, c))
+def pad_int8_encoder(qenc: dict) -> dict:
+    """The bundle with every width padded to a multiple of 32 (the depth of
+    K6's ``mma``): zero columns of ``w0`` and ``b0``, zero rows and columns
+    of each ``wq``, ``s_w = 1`` and ``b = 0`` in the padded channels. A
+    padded channel is ReLU(0) = 0, which moves neither a row maximum nor a
+    product, so the plain version gives the same bits on it (with the
+    outputs past C_last dropped). Raises ValueError on a malformed bundle."""
+    w0, b0 = qenc["layer0"]
+    layers = qenc["layers_q"]
+    if not 1 <= len(layers) <= _MAX_LAYERS:
+        raise ValueError(f"1..{_MAX_LAYERS} quantized layers supported, got "
+                         f"{len(layers)}")
+    w0 = w0.float()
+    b0 = b0.float().reshape(-1)
+    if w0.ndim != 2 or w0.shape[0] != 3 or b0.shape != (w0.shape[1],):
+        raise ValueError(f"layer0 must be (3, C0) and (C0,), got "
+                         f"{tuple(w0.shape)}, {tuple(b0.shape)}")
+    device = w0.device
+    k, kp = w0.shape[1], _pad32(w0.shape[1])
+    w0p = w0.new_zeros((3, kp))
+    w0p[:, :k] = w0
+    b0p = b0.new_zeros(kp)
+    b0p[:k] = b0
+    out = []
+    for wq, s_w, b in layers:
+        if wq.dtype != torch.int8 or wq.ndim != 2 or wq.shape[0] != k:
+            raise ValueError(f"quantized weight must be int8 ({k}, C), got "
+                             f"{wq.dtype} {tuple(wq.shape)}")
+        c, cp = wq.shape[1], _pad32(wq.shape[1])
+        s_w = s_w.float().reshape(-1)
+        b = b.float().reshape(-1)
+        if s_w.shape != (c,) or b.shape != (c,):
+            raise ValueError(f"scale and bias must have {c} entries")
+        if any(x.device != device for x in (b0, wq, s_w, b)):
+            raise ValueError("the bundle's tensors lie on different devices")
+        wqp = wq.new_zeros((kp, cp))
+        wqp[:k, :c] = wq
+        swp = s_w.new_ones((1, cp))
+        swp[0, :c] = s_w
+        bp = b.new_zeros((1, cp))
+        bp[0, :c] = b
+        out.append((wqp, swp, bp))
+        k, kp = c, cp
+    return {"layer0": (w0p, b0p.reshape(1, -1)), "layers_q": out}
+
+
+def _pad32(width: int) -> int:
+    return -(-width // 32) * 32
+
+
+# Slot 16h + 4t + i of each 32-wide chunk of K holds weight row
+# 16h + 8(i // 2) + 2t + i % 2: where the m16n8k32 A fragment wants thread
+# t's byte i, the accumulator layout of the previous layer left that
+# thread's output (csrc/encoder_pool_int8.cu).
+INT8_K_ORDER = tuple(16 * h + 8 * (i // 2) + 2 * t + i % 2
+                     for h in range(2) for t in range(4) for i in range(4))
+INT8_MAX_WIDTH = 256  # a 16 x 256 slab's accumulators fill 128 registers
+
+
+@dataclass(eq=False)
+class PackedInt8Encoder:
+    """K6's shared-memory image of a bundle (``pack_int8_encoder``)."""
+
+    data: Tensor               # uint8, bytes as csrc/encoder_pool_int8.cu
+    dims: Tuple[int, ...]      # padded widths: C0, then each layer's C
+    c_last: int                # the unpadded output width
+
+    def __post_init__(self):
+        self.c_dims = (ctypes.c_int * len(self.dims))(*self.dims)
+
+
+def pack_int8_encoder(qenc: dict) -> PackedInt8Encoder:
+    """Pad the bundle (``pad_int8_encoder``) and lay it out as K6 reads it:
+    w0 (3, C0) and b0 (C0,) f32, then per layer s_w (C,) and b (C,) f32 and
+    the int8 weights in fragment order, [C/8][K/32][32 lanes][8 bytes]:
+    lane 4g + t holds rows 16h + 4t + i (h = 0, 1; i = 0..3, in
+    ``INT8_K_ORDER``) of column 8j + g, the m16n8k32 B operand. Runs on the
+    bundle's device. Raises ValueError where a padded width exceeds
+    ``INT8_MAX_WIDTH`` or the image a block's shared memory."""
+    padded = pad_int8_encoder(qenc)
+    w0, b0 = padded["layer0"]
+    dims = (w0.shape[1], *(wq.shape[1] for wq, _, _ in padded["layers_q"]))
+    if max(dims) > INT8_MAX_WIDTH:
+        raise ValueError(
+            f"K6 keeps a 16-point slab's outputs of a layer in registers: "
+            f"widths up to {INT8_MAX_WIDTH} after padding to 32, got {dims}")
+    order = torch.tensor(INT8_K_ORDER, device=w0.device)
+    parts = [w0.reshape(-1), b0.reshape(-1)]
+    for wq, s_w, b in padded["layers_q"]:
+        kp, cp = wq.shape
+        frag = (wq.reshape(kp // 32, 32, cp)[:, order, :]
+                .reshape(kp // 32, 2, 4, 4, cp // 8, 8)
+                .permute(4, 0, 5, 2, 1, 3))      # (j, kc, g, t, h, i)
+        parts += [s_w.reshape(-1), b.reshape(-1), frag.reshape(-1)]
+    data = torch.cat([x.contiguous().view(torch.uint8) for x in parts])
+    if data.numel() > _MAX_SMEM:
+        raise ValueError(
+            f"widths {dims} exceed K6's shared memory: the packed bundle "
+            f"(16 C0 + the sum over layers of 8 C + K C bytes) is "
+            f"{data.numel()} bytes, more than the {_MAX_SMEM} a block may "
+            "use")
+    return PackedInt8Encoder(data, dims, qenc["layers_q"][-1][0].shape[1])
+
+
+class Int8PackMemo:
+    """``pack_int8_encoder`` once per bundle: an entry is keyed by the
+    identity, storage, version counter and shape of every tensor of the
+    bundle and holds weak references to them, so an in-place edit of a
+    weight (which bumps its version) or a new bundle at a freed address
+    repacks. ``packs`` counts the packings. Holds the last eight."""
+
+    def __init__(self):
+        self.packs = 0
+        self._entries: "collections.OrderedDict" = collections.OrderedDict()
+
+    def __call__(self, qenc: dict) -> PackedInt8Encoder:
+        leaves = [*qenc["layer0"],
+                  *(x for layer in qenc["layers_q"] for x in layer)]
+        key = tuple((id(x), x.data_ptr(), x._version, tuple(x.shape))
+                    for x in leaves)
+        hit = self._entries.get(key)
+        if hit is not None and all(r() is x for r, x in zip(hit[0], leaves)):
+            self._entries.move_to_end(key)
+            return hit[1]
+        packed = pack_int8_encoder(qenc)
+        self.packs += 1
+        self._entries[key] = ([weakref.ref(x) for x in leaves], packed)
+        while len(self._entries) > 8:
+            self._entries.popitem(last=False)
+        return packed
+
+
+packed_int8_encoder = Int8PackMemo()
+_SM_COUNTS: dict = {}
 
 
 def _int8_lib() -> ctypes.CDLL:
     lib = _cuda.library("encoder_pool_int8")
     if lib.grl_encoder_pool_int8.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.grl_encoder_pool_int8.argtypes = [p, p, p, p, p, p, p, p, i, i,
-                                              i, p, p, p]
+        lib.grl_encoder_pool_int8.argtypes = [p, p, p, p, i, i, i, i, i, i,
+                                              p, p, p]
         lib.grl_encoder_pool_int8.restype = i
-        lib.grl_encoder_pool_int8_smem.argtypes = [p, i]
-        lib.grl_encoder_pool_int8_smem.restype = i
+        lib.grl_encoder_pool_int8_attributes.argtypes = [
+            i, i, ctypes.POINTER(ctypes.c_int)]
+        lib.grl_encoder_pool_int8_attributes.restype = i
+        lib.grl_encoder_pool_int8_divide_check.argtypes = [
+            ctypes.c_longlong, ctypes.c_ulonglong, p, p]
+        lib.grl_encoder_pool_int8_divide_check.restype = i
     return lib
+
+
+def int8_divide_mismatches(n: int, seed: int, device) -> int:
+    """How many of ``n`` quotients drawn from ``seed`` K6's divide (a
+    refined reciprocal and one correction) gives with other bits than the
+    IEEE divide ``__fdiv_rn``, on the card (expected 0)."""
+    device = torch.device(device)
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    lib = _int8_lib()
+    with torch.cuda.device(device):
+        err = lib.grl_encoder_pool_int8_divide_check(
+            n, seed, count.data_ptr(), torch.cuda.current_stream(
+                device).cuda_stream)
+    _cuda.check(err, lib, "encoder_pool_int8 divide check")
+    return int(count.item())
+
+
+def encoder_pool_int8_attributes(masked: bool, flagship: bool
+                                 ) -> Tuple[int, int]:
+    """(registers a thread, local-memory bytes) of K6's instance, from
+    ``cudaFuncGetAttributes``; ``flagship`` picks the instance with the
+    flagship widths fixed at compile time."""
+    local = ctypes.c_int(0)
+    regs = _int8_lib().grl_encoder_pool_int8_attributes(
+        int(masked), int(flagship), ctypes.byref(local))
+    return regs, local.value
 
 
 def _fused_encoder_pool_int8_cuda(pc: Tensor, qenc: dict,
@@ -251,61 +412,34 @@ def _fused_encoder_pool_int8_cuda(pc: Tensor, qenc: dict,
     if bsz < 1 or n < 1:
         raise ValueError(f"empty batch {tuple(pc.shape)}")
     _cuda.require_cuda(pc, "fused_encoder_pool_int8")
-    layers = qenc["layers_q"]
-    if not 1 <= len(layers) <= _MAX_LAYERS:
-        raise ValueError(f"1..{_MAX_LAYERS} quantized layers supported, got "
-                         f"{len(layers)}")
     w0, b0 = qenc["layer0"]
-    w0 = w0.float().contiguous()
-    b0 = b0.float().reshape(-1).contiguous()
     _cuda.refuse_grad("fused_encoder_pool_int8", "K6 serves the int8 "
                       "inference engine", pc, w0, b0)
-    if w0.ndim != 2 or w0.shape[0] != 3 or b0.shape != (w0.shape[1],):
-        raise ValueError(f"layer0 must be (3, C0) and (C0,), got "
-                         f"{tuple(w0.shape)}, {tuple(b0.shape)}")
-    dims, packed, scales, biases = [w0.shape[1]], [], [], []
-    for wq, s_w, b in layers:
-        if wq.dtype != torch.int8 or wq.ndim != 2 or wq.shape[0] != dims[-1]:
-            raise ValueError(f"quantized weight must be int8 ({dims[-1]}, C),"
-                             f" got {wq.dtype} {tuple(wq.shape)}")
-        c = wq.shape[1]
-        s_w = s_w.float().reshape(-1).contiguous()
-        b = b.float().reshape(-1).contiguous()
-        if s_w.shape != (c,) or b.shape != (c,):
-            raise ValueError(f"scale and bias must have {c} entries")
-        if wq.shape[0] % 4 or c % 8:
-            raise ValueError(f"K6 takes K a multiple of 4 and C of 8, got "
-                             f"({wq.shape[0]}, {c})")
-        packed.append(pack_int8_weight(wq))
-        scales.append(s_w)
-        biases.append(b)
-        dims.append(c)
-    if any(x.device != pc.device for x in (w0, b0, *packed, *scales, *biases)):
+    packed = packed_int8_encoder(qenc)
+    if packed.data.device != pc.device:
         raise ValueError("weights must lie on the input's device")
-    lib = _int8_lib()
-    c_dims = (ctypes.c_int * len(dims))(*dims)
-    smem = lib.grl_encoder_pool_int8_smem(ctypes.addressof(c_dims), len(layers))
-    if not 0 < smem <= _MAX_SMEM:
-        raise ValueError(f"widths {dims} exceed K6's shared memory")
     pc = pc.to(torch.float32).contiguous()
     if mask is not None:
         if mask.shape != (bsz, n) or mask.device != pc.device:
             raise ValueError(f"mask must be (B, N) = {(bsz, n)} on "
                              f"{pc.device}, got {tuple(mask.shape)}")
         mask = mask.to(torch.float32).contiguous()
-    bits = torch.empty((bsz, dims[-1]), dtype=torch.int32, device=pc.device)
-    out = torch.empty((bsz, dims[-1]), dtype=torch.float32, device=pc.device)
-    n_q = len(layers)
-    w_ptrs = (ctypes.c_void_p * n_q)(*[w.data_ptr() for w in packed])
-    s_ptrs = (ctypes.c_void_p * n_q)(*[s.data_ptr() for s in scales])
-    b_ptrs = (ctypes.c_void_p * n_q)(*[b.data_ptr() for b in biases])
+    index = pc.device.index
+    sms = _SM_COUNTS.get(index)
+    if sms is None:
+        sms = _SM_COUNTS[index] = torch.cuda.get_device_properties(
+            pc.device).multi_processor_count
+    bits = torch.empty((bsz, packed.c_last), dtype=torch.int32,
+                       device=pc.device)
+    out = torch.empty((bsz, packed.c_last), dtype=torch.float32,
+                      device=pc.device)
+    lib = _int8_lib()
     with torch.cuda.device(pc.device):
         err = lib.grl_encoder_pool_int8(
             pc.data_ptr(), mask.data_ptr() if mask is not None else None,
-            w0.data_ptr(), b0.data_ptr(), ctypes.addressof(w_ptrs),
-            ctypes.addressof(s_ptrs), ctypes.addressof(b_ptrs),
-            ctypes.addressof(c_dims), n_q, bsz, n, bits.data_ptr(),
-            out.data_ptr(), _cuda.stream_of(pc))
+            packed.data.data_ptr(), ctypes.addressof(packed.c_dims),
+            len(packed.dims) - 1, packed.c_last, bsz, n, sms, index,
+            bits.data_ptr(), out.data_ptr(), _cuda.stream_of(pc))
     _cuda.check(err, lib, "encoder_pool_int8")
     _cuda.launch_counts["encoder_pool_int8"] += 1
     return out

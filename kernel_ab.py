@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
-"""A/B of two builds of the port's K1 (csrc/encoder_pool.cu) and K5
-(csrc/nn_grad.cu) on one NVIDIA GPU: this checkout's kernels, through
-their wrappers, against another checkout's, built from its sources.
+"""A/B of two builds of the port's K1 (csrc/encoder_pool.cu), K6
+(csrc/encoder_pool_int8.cu) and K5 (csrc/nn_grad.cu) on one NVIDIA GPU:
+this checkout's kernels, through their wrappers, against another
+checkout's, built from its sources.
 
-  python3 kernel_ab.py --other DIR [--kernels encoder_pool nn_grad]
+  python3 kernel_ab.py --other DIR [--kernels encoder_pool
+                                    encoder_pool_int8 nn_grad]
 
 DIR is the root of the other checkout (for example the parent commit
 unpacked with ``git archive``). The other build is called through its own
 C entry points: ``grl_encoder_pool`` with or without the point tile
 (which it then takes from this checkout's ``encoder_tile``), and
 ``grl_nn_grad_b`` with or without a global scratch (which it then sizes
-by its ``grl_nn_grad_b_scratch``). For each kernel it prints
-the count of output elements that differ between the two builds (K1 at
-B=64, N=2048 with the flagship engine's f32 and bf16 weights, masked and
-unmasked; K5 on the Chamfer backward's inputs at B=64 masked and
-unmasked, B=512, and the adversarial cases of chip_smoke.py), then times
-both in turns (other, this, this, other). Exits non-zero without a card.
+by its ``grl_nn_grad_b_scratch``); K6 through the ``__dp4a`` build's
+``grl_encoder_pool_int8``, which takes int32 words of four int8 weights.
+For each kernel it prints the count of output elements that differ
+between the two builds (K1 at B=64, N=2048 with the flagship engine's f32
+and bf16 weights, masked and unmasked; K6 at B=64 and 4096 with the
+flagship int8 engine, masked and unmasked; K5 on the Chamfer backward's
+inputs at B=64 masked and unmasked, B=512, and the adversarial cases of
+chip_smoke.py), then times both in turns (other, this, this, other).
+Exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -92,6 +97,44 @@ def other_scatter(lib, idx, da, m):
     return db
 
 
+def other_encoder_pool_int8(lib, pc, qenc, mask, words=None):
+    """The other build's K6 through its C entry, the ``__dp4a`` one: each
+    layer's int8 weights as int32 words of four along K (byte j of word
+    [k4, c] is wq[4 k4 + j, c]), with separate scale and bias pointers;
+    ``words`` holds them packed once (``int8_words``)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.grl_encoder_pool_int8.argtypes = [p] * 8 + [i, i, i, p, p, p]
+    lib.grl_encoder_pool_int8.restype = i
+    layers = qenc["layers_q"]
+    words = words if words is not None else int8_words(qenc)
+    w0, b0 = qenc["layer0"]
+    w0 = w0.float().contiguous()
+    b0 = b0.float().reshape(-1).contiguous()
+    scales = [s.float().reshape(-1).contiguous() for _, s, _ in layers]
+    biases = [b.float().reshape(-1).contiguous() for _, _, b in layers]
+    dims = [w0.shape[1]] + [wq.shape[1] for wq, _, _ in layers]
+    bsz, n, _ = pc.shape
+    bits = torch.empty((bsz, dims[-1]), dtype=torch.int32, device=pc.device)
+    out = torch.empty((bsz, dims[-1]), device=pc.device)
+    ptrs = [(p * len(layers))(*[x.data_ptr() for x in xs])
+            for xs in (words, scales, biases)]
+    c_dims = (i * len(dims))(*dims)
+    err = lib.grl_encoder_pool_int8(
+        pc.data_ptr(), None if mask is None else mask.data_ptr(),
+        w0.data_ptr(), b0.data_ptr(), *map(ctypes.addressof, ptrs),
+        ctypes.addressof(c_dims), len(layers), bsz, n, bits.data_ptr(),
+        out.data_ptr(), _cuda.stream_of(pc))
+    if err:
+        raise RuntimeError(f"other encoder_pool_int8: CUDA error {err}")
+    return out
+
+
+def int8_words(qenc):
+    return [wq.reshape(wq.shape[0] // 4, 4, wq.shape[1]).transpose(1, 2)
+            .contiguous().view(torch.int32).reshape(wq.shape[0] // 4, -1)
+            for wq, _, _ in qenc["layers_q"]]
+
+
 def differ(x, y) -> int:
     return int((x.view(torch.int32) != y.view(torch.int32)).sum())
 
@@ -135,6 +178,38 @@ def ab_encoder_pool(lib, device):
             torch.cuda.empty_cache()
 
 
+def ab_encoder_pool_int8(lib, device):
+    """K6 of the two builds on the flagship int8 engine: differing elements
+    at B=64 and 4096, masked and unmasked, then times in turns (the other
+    build's weights packed once, outside the timed calls)."""
+    from gan_rl_3d_tpu_torch.convert import model_from_numpy
+    from gan_rl_3d_tpu_torch.models import inference
+    from gan_rl_3d_tpu_torch.ops import encoder_kernel as ek
+
+    model = model_from_numpy(chip_smoke.init_numpy_model(
+        chip_smoke._flagship(), seed=0), device=device)
+    qenc = inference.prepare_inference_engine(
+        model, quantize_int8=True)["encoder_q"]
+    words = int8_words(qenc)
+    for bsz, reps in ((chip_smoke.B_MAIN, 20), (chip_smoke.B_BIG, 3)):
+        pc, mask = chip_smoke.make_clouds(bsz, chip_smoke.N_MAIN, 1, device)
+        n_diff, n_all = 0, 0
+        for m in (None, mask):
+            mine = ek.fused_encoder_pool_int8(pc, qenc, m)
+            theirs = other_encoder_pool_int8(lib, pc, qenc, m, words)
+            n_diff += differ(mine, theirs)
+            n_all += mine.numel()
+        print(f"encoder_pool_int8: {n_diff} of {n_all} elements differ from "
+              f"the other build (B={bsz}, N={chip_smoke.N_MAIN}, masked and "
+              "unmasked)")
+        in_turns(f"encoder_pool_int8 B={bsz}",
+                 lambda: other_encoder_pool_int8(lib, pc, qenc, None, words),
+                 lambda: ek.fused_encoder_pool_int8(pc, qenc),
+                 lambda fn: chip_smoke.timed_ms(fn, reps=reps))
+        del pc, mask
+        torch.cuda.empty_cache()
+
+
 def ab_scatter(lib, device):
     from gan_rl_3d_tpu_torch.ops import chamfer
 
@@ -164,7 +239,8 @@ def main() -> None:
     parser.add_argument("--other", type=Path, required=True)
     parser.add_argument("--kernels", nargs="+",
                         default=["encoder_pool", "nn_grad"],
-                        choices=["encoder_pool", "nn_grad"])
+                        choices=["encoder_pool", "encoder_pool_int8",
+                                 "nn_grad"])
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_ab: needs a CUDA device")
@@ -176,8 +252,9 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         for name in args.kernels:
             lib = build_other(args.other, name, Path(tmp))
-            {"encoder_pool": ab_encoder_pool, "nn_grad": ab_scatter}[name](
-                lib, device)
+            {"encoder_pool": ab_encoder_pool,
+             "encoder_pool_int8": ab_encoder_pool_int8,
+             "nn_grad": ab_scatter}[name](lib, device)
     torch.cuda.synchronize()
 
 

@@ -121,10 +121,18 @@ def test_cli_refuses_a_missing_gpu_and_checkpoints(served, tmp_path):
 
 
 def test_bf16_jax_engine_is_refused(tmp_path):
+    """A JAX engine file holding an ml_dtypes type other than bfloat16
+    (here one float8 leaf in a bf16 engine) is refused; the bf16 engine
+    itself loads (tests/test_torch_port_int8.py)."""
+    import ml_dtypes
+
     _, tree = small_model_tree(seed=6)
-    jinf.save_engine(str(tmp_path / "bf16.pkl"),
-                     jinf.prepare_inference_engine(tree, dtype=jnp.bfloat16))
-    with pytest.raises(ValueError, match="bf16 engine written by the JAX"):
+    jeng = jax.tree.map(np.asarray, jinf.prepare_inference_engine(
+        tree, dtype=jnp.bfloat16))
+    w, b = jeng["decoder"][0]
+    jeng["decoder"][0] = (w.astype(ml_dtypes.float8_e4m3fn), b)
+    jinf.save_engine(str(tmp_path / "bf16.pkl"), jeng)
+    with pytest.raises(ValueError, match="ml_dtypes.float8_e4m3fn arrays"):
         tinf.load_engine(str(tmp_path / "bf16.pkl"), device="cpu")
 
 

@@ -139,15 +139,19 @@ def _qenc(dims, seed, device):
                     quantize_encoder(_layers(dims, seed)))
 
 
+# widths off every multiple of 32, as chip_smoke.py's ragged K6 case
+RAGGED_INT8 = (3, 20, 36, 100, 8)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dims", [DIMS, (3, 16, 32, 32, 64, 32)])
+@pytest.mark.parametrize("dims", [DIMS, (3, 16, 32, 32, 64, 32), RAGGED_INT8,
+                                  (3, 16, 20)])
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("n", [2048, 1000])
 def test_encoder_pool_int8_kernel_matches_plain(cuda, dims, masked, n):
-    """K6 against its plain version: expected equal bit for bit (exact int32
-    sums, the plain version's rounding steps); held to the JAX package's
-    kernel-vs-twin bound, rtol 1e-2 and atol 1e-3. A fully masked cloud
-    pools to -inf."""
+    """K6 against its plain version, bit for bit: exact int32 sums on the
+    tensor cores, the plain version's rounding steps, and padding that
+    moves no bit. A fully masked cloud pools to -inf."""
     qenc = _qenc(dims, 4, cuda)
     pc, mask = _clouds(5, n, 5, cuda)
     mask[1] = 0.0
@@ -157,18 +161,61 @@ def test_encoder_pool_int8_kernel_matches_plain(cuda, dims, masked, n):
     torch.cuda.synchronize()
     assert _cuda.launch_counts["encoder_pool_int8"] == before + 1
     ref = ek.fused_encoder_pool_int8_plain(pc, qenc, m)
-    assert torch.equal(torch.isneginf(out), torch.isneginf(ref))
-    fin = torch.isfinite(ref)
-    assert torch.allclose(out[fin], ref[fin], rtol=1e-2, atol=1e-3)
+    assert torch.equal(out, ref), int((out != ref).sum())
     if masked:
         assert bool(torch.isneginf(out[1]).all())
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bsz", [1, 3])
+def test_encoder_pool_int8_ragged_widths_and_masked_cloud(cuda, bsz):
+    """K6 at ragged widths, N=1000, masked, at B=1 and at B=3 with the last
+    cloud fully masked (-inf): equal to the plain version."""
+    qenc = _qenc(RAGGED_INT8, 23, cuda)
+    pc, mask = _clouds(bsz, 1000, 24, cuda)
+    if bsz > 1:
+        mask[-1] = 0.0
+    out = ek.fused_encoder_pool_int8(pc, qenc, mask)
+    torch.cuda.synchronize()
+    ref = ek.fused_encoder_pool_int8_plain(pc, qenc, mask)
+    assert out.shape == (bsz, RAGGED_INT8[-1])
+    assert torch.equal(out, ref), int((out != ref).sum())
+    if bsz > 1:
+        assert bool(torch.isneginf(out[-1]).all())
+
+
+@pytest.mark.cuda
+def test_encoder_pool_int8_after_in_place_weight_edit(cuda):
+    """A second call after an in-place edit of one wq repacks (the memo is
+    keyed by the version counter) and gives the new result; an unchanged
+    bundle is packed once."""
+    qenc = _qenc(DIMS, 25, cuda)
+    pc, mask = _clouds(4, 700, 26, cuda)
+    packs = ek.packed_int8_encoder.packs
+    first = ek.fused_encoder_pool_int8(pc, qenc, mask)
+    assert torch.equal(first, ek.fused_encoder_pool_int8(pc, qenc, mask))
+    assert ek.packed_int8_encoder.packs == packs + 1
+    wq = qenc["layers_q"][1][0]
+    wq.copy_(-wq)
+    out = ek.fused_encoder_pool_int8(pc, qenc, mask)
+    torch.cuda.synchronize()
+    assert ek.packed_int8_encoder.packs == packs + 2
+    ref = ek.fused_encoder_pool_int8_plain(pc, qenc, mask)
+    assert torch.equal(out, ref) and not torch.equal(out, first)
+
+
+@pytest.mark.cuda
+def test_encoder_pool_int8_divide_is_the_ieee_divide(cuda):
+    """K6 quantizes with a refined reciprocal and one correction instead of
+    __fdiv_rn: the same bits on 2^28 quotients, near-ties included."""
+    assert ek.int8_divide_mismatches(1 << 28, 1, cuda) == 0
+
+
+@pytest.mark.cuda
 def test_encoder_pool_int8_checks_its_inputs(cuda):
     pc, _ = _clouds(2, 64, 6, cuda)
-    with pytest.raises(ValueError, match="multiple of 4 and C of 8"):
-        ek.fused_encoder_pool_int8(pc, _qenc((3, 16, 20), 7, cuda))
+    with pytest.raises(ValueError, match="registers: widths up to 256"):
+        ek.fused_encoder_pool_int8(pc, _qenc((3, 16, 264), 7, cuda))
     qenc = _qenc(DIMS, 7, cuda)
     wq, s_w, b = qenc["layers_q"][0]
     with pytest.raises(ValueError, match="int8"):
@@ -338,3 +385,64 @@ def test_evaluate_completion_on_card_matches_cpu(cuda):
     out = evaluate_completion(a.to(cuda), b.to(cuda), metrics=metrics)
     for k in ref:
         np.testing.assert_allclose(float(out[k]), float(ref[k]), atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_kernels_take_batches_past_grid_y(cuda, masked):
+    """B = 65,537 clouds of N = M = 16 points, one more than grid.y holds:
+    K1 (f32, 1e-4 scaled), K3 and K2 (1e-3, settled indices equal), K4
+    (1e-5 scaled) and K5 (bit for bit) against their plain versions, so
+    the whole Chamfer backward is covered (chip_smoke.big_batch_checks)."""
+    before = _cuda.launch_counts.copy()
+    chip_smoke.big_batch_checks(cuda, masked)
+    torch.cuda.synchronize()
+    for name in ("encoder_pool_f32", "nn_dist", "nn_min", "nn_gather",
+                 "nn_scatter"):
+        assert _cuda.launch_counts[name] > before[name], name
+
+
+def _bf16_engine_file(engine, path):
+    """Write ``engine`` as the JAX package writes a bf16 engine: bf16
+    arrays pickled with the dtype ml_dtypes.bfloat16. The card's machine
+    has no ml_dtypes, so the uint16 words are pickled and the dtype's
+    name is swapped for that global (protocol 3: no frames to resize, and
+    GLOBAL pushes one object where the name string pushed one)."""
+    import pickle
+
+    def leaf(x):
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view(np.uint16)
+        return x.numpy()
+
+    raw = pickle.dumps(tree_map(leaf, engine), protocol=3)
+    assert raw.count(b"X\x02\x00\x00\x00u2") == 1
+    path.write_bytes(raw.replace(b"X\x02\x00\x00\x00u2",
+                                 b"cml_dtypes\nbfloat16\n"))
+
+
+@pytest.mark.cuda
+def test_bf16_engine_file_loads_on_card(cuda, tmp_path):
+    """A bf16 engine file with ml_dtypes.bfloat16 arrays loads on the card
+    through the stand-in with every bf16 leaf's bits, and serves as the
+    engine it was written from (K1 bf16)."""
+    from gan_rl_3d_tpu_torch.convert import model_from_numpy
+    from gan_rl_3d_tpu_torch.models import inference
+    from gan_rl_3d_tpu_torch.utils.tree import tree_leaves
+
+    model = model_from_numpy(chip_smoke.init_numpy_model(
+        chip_smoke._flagship(), seed=2), device=cuda)
+    engine = inference.prepare_inference_engine(model, dtype=torch.bfloat16)
+    _bf16_engine_file(engine, tmp_path / "bf16.pkl")
+    loaded = inference.load_engine(str(tmp_path / "bf16.pkl"), device=cuda,
+                                   dtype=torch.bfloat16)
+    for a, b in zip(tree_leaves(engine), tree_leaves(loaded)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    pc, mask = _clouds(4, 2048, 27, cuda)
+    before = _cuda.launch_counts["encoder_pool_bf16"]
+    out = inference.complete_fast(loaded, pc, mask, gate_mode="rl")
+    ref = inference.complete_fast(engine, pc, mask, gate_mode="rl")
+    assert _cuda.launch_counts["encoder_pool_bf16"] == before + 2
+    for k in ref:
+        assert torch.equal(out[k], ref[k]), k

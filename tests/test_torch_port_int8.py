@@ -30,6 +30,8 @@ KEYS = ("noisy_gfv", "z_vector", "clean_gfv", "completed_pc",
         "ae_reconstruction")
 SMALL_DIMS = (3, 16, 32, 32, 64, 32)
 FLAGSHIP_DIMS = (3, 64, 128, 128, 256, 128)
+# widths off every multiple of 32: K6 pads them (tests/test_torch_port_int8_mma.py)
+RAGGED_DIMS = (3, 20, 36, 100, 8)
 
 
 def _folded(dims, seed):
@@ -94,7 +96,8 @@ def test_quantize_encoder_bundle_matches_jax(dims):
         np.testing.assert_array_equal(b.numpy(), jb_)
 
 
-@pytest.mark.parametrize("dims", [SMALL_DIMS, FLAGSHIP_DIMS])
+@pytest.mark.parametrize("dims", [SMALL_DIMS, FLAGSHIP_DIMS, RAGGED_DIMS,
+                                  (3, 16, 20)])
 @pytest.mark.parametrize("masked", [False, True])
 def test_int8_pool_plain_matches_jax_kernel(dims, masked):
     """fused_encoder_pool_int8_plain against the JAX kernel in interpret
@@ -131,20 +134,6 @@ def test_int8_pool_routes_cpu_tensors_to_the_plain_version():
     assert torch.equal(tek.fused_encoder_pool_int8(t(pc), tb, t(mask)),
                        tek.fused_encoder_pool_int8_plain(t(pc), tb, t(mask)))
     assert dict(_cuda.launch_counts) == before
-
-
-def test_int8_weight_packing_feeds_dp4a():
-    """pack_int8_weight's words, read back byte by byte as __dp4a reads
-    them, give the int8 product exactly."""
-    g = torch.Generator().manual_seed(6)
-    wq = torch.randint(-127, 128, (16, 24), generator=g).to(torch.int8)
-    xq = torch.randint(-127, 128, (5, 16), generator=g).to(torch.int8)
-    words = tek.pack_int8_weight(wq)
-    assert words.shape == (4, 24) and words.dtype == torch.int32
-    unpacked = words.view(torch.int8).reshape(4, 24, 4).permute(0, 2, 1)
-    assert torch.equal(unpacked.reshape(16, 24), wq)
-    ref = xq.long() @ wq.long()
-    assert torch.equal(tq.int8_matmul(xq, wq).long(), ref)
 
 
 @pytest.fixture(scope="module")
@@ -238,3 +227,45 @@ def test_int8_engine_files_cross_between_packages(models, tmp_path):
     for k in ref:
         np.testing.assert_array_equal(np.asarray(again[k]),
                                       np.asarray(ref[k]))
+
+
+def _paired_leaves(jax_tree, port_tree, path=""):
+    """(path, JAX leaf, port leaf) over two trees of the same layout."""
+    if isinstance(jax_tree, dict):
+        for k in jax_tree:
+            yield from _paired_leaves(jax_tree[k], port_tree[k], f"{path}/{k}")
+    elif isinstance(jax_tree, (list, tuple)):
+        for i, (a, b) in enumerate(zip(jax_tree, port_tree)):
+            yield from _paired_leaves(a, b, f"{path}/{i}")
+    elif jax_tree is not None:
+        yield path, np.asarray(jax_tree), port_tree
+
+
+def test_jax_bf16_engine_file_loads_bit_for_bit_and_serves(models, tmp_path):
+    """A bf16 engine written by the JAX save_engine (ml_dtypes arrays)
+    loads in the port with every bf16 leaf's 16-bit words unchanged, and
+    serves within the bf16 engine's bound (2e-2 relative) of the JAX
+    complete_fast on it."""
+    jeng = jinf.prepare_inference_engine(models["jax"][True],
+                                         dtype=jnp.bfloat16)
+    jinf.save_engine(str(tmp_path / "jax_bf16.pkl"), jeng)
+    engine = tinf.load_engine(str(tmp_path / "jax_bf16.pkl"), device="cpu",
+                              dtype=torch.bfloat16)
+    n_bf16 = 0
+    for path, ref, leaf in _paired_leaves(jeng, engine):
+        assert tuple(leaf.shape) == ref.shape, path
+        if ref.dtype == jnp.bfloat16:
+            n_bf16 += 1
+            assert leaf.dtype == torch.bfloat16, path
+            np.testing.assert_array_equal(
+                leaf.view(torch.int16).numpy().view(np.uint16),
+                ref.view(np.uint16), err_msg=path)
+    assert n_bf16 >= 10
+    pc, mask = small_clouds(seed=12)
+    ref = jinf.complete_fast(jeng, jnp.asarray(pc), jnp.asarray(mask),
+                             dtype=jnp.bfloat16, gate_mode="rl")
+    out = tinf.complete_fast(engine, t(pc), t(mask), gate_mode="rl")
+    for k in KEYS:
+        r = np.asarray(ref[k], np.float32)
+        rel = np.abs(out[k].float().numpy() - r).max() / np.abs(r).max()
+        assert rel <= 2e-2, (k, rel)
