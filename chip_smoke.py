@@ -5,13 +5,18 @@
 
 Phases, each failing the run if it fails:
   1. device: require CUDA, print the card's name and power limit, build
-     every kernel from csrc/ with nvcc (sm_90a), one process per source;
+     every kernel from csrc/ with nvcc (sm_90a), one process per source,
+     and print each kernel's registers, stack and spills (no instance of
+     K1 or K6 may spill);
   2. kernels vs their plain PyTorch versions at the main paths' shapes
-     (B=64, N=M=2048, masked and unmasked): K1 (also on an engine of odd
-     widths at B=1 and with a fully masked cloud), K1-K5 at B=65,537
-     (N=M=16), K6 bit for bit (also at B=3, N=1500 with a fully masked
-     cloud, at ragged widths, and after an in-place weight edit), K3,
-     K2; K4 (gather) and K5
+     (B=64, N=M=2048, masked and unmasked): every instance of K1 (f32; bf16
+     on the tensor cores and on the CUDA cores, also at odd widths with a
+     fully masked cloud, at B=1, and above 256 for the CUDA-core one; f32
+     and the tensor-core bf16 at B=65,537), K2-K5 at B=65,537 (N=M=16),
+     K6 bit for bit (also at B=3, N=1500 with a fully masked cloud, at
+     ragged widths, after an in-place weight edit, at every width list of
+     INT8_WIDTHS through the instance its widths pick, and its wide
+     instance at the main shapes), K3, K2; K4 (gather) and K5
      (scatter), K5 bit for bit, also on adversarial targets (all on one,
      all distinct, M > N, N > M, past shared memory, B=2 with
      N=M=20000) and twice for identical bits; the Chamfer gradient by the
@@ -33,9 +38,10 @@ Phases, each failing the run if it fails:
      evaluate --checkpoint autoencoder_best --export-engine``, and
      ``complete_clouds --checkpoint`` and ``--engine`` (the exported
      engine) on a few files (K3 and K2 must launch);
-  5. times: each kernel, its plain version, the least time the card could
-     take (bound) and a library yardstick (K1's and K6's registers a
-     thread, K6's shared memory, beside their times), at B=64 (and
+  5. times: each kernel (every instance of K1 and K6 at the flagship
+     widths), its plain version, the least time the card could take
+     (bound) and a library yardstick (registers a thread and shared memory
+     beside their times), at B=64 (and
      B=4096 for the serving kernels, B=512 for K4 and K5), the time per
      ``complete_fast`` call at B=64 and B=4096 (f32, bf16 and int8 engines), and per
      ``ae_train_step`` at B=64 in f32 and bf16_selective, with a
@@ -100,6 +106,10 @@ B_STEP_CHECK = 8
 BIG_BATCH = 65537   # one more cloud than a grid's y dimension holds
 INT8_RAGGED = (3, 20, 36, 100, 8)  # K6 widths off every multiple of 32
 INT8_FLAGSHIP = (64, 128, 128, 256, 128)  # K6's compile-time instance
+# width lists every instance of K1 and K6 must take (K6: two on the
+# mma.sync instance, three on the wide one)
+INT8_WIDTHS = ((3, 24, 40, 72, 200, 8), (3, 64, 512, 128), (3, 512, 512, 96),
+               (3, 907, 907, 8), (3, 100))
 INT8_DIVIDE_PAIRS = 1 << 31  # K6's divide against __fdiv_rn (about 0.5 s)
 TRACE_STEPS = 5     # ae_train_steps traced by torch.profiler
 TRACE_TOP = 12      # kernels listed by their device time
@@ -260,30 +270,37 @@ def chunked(fn, bsz: int, chunk: int):
 
 
 def ptxas_report(log: str) -> dict:
-    """nvcc -Xptxas -v output -> {kernel: "N registers, S bytes spill
-    stores, L bytes spill loads"}, with the template arguments of K1
-    (encoder_pool_kernel<tile, bf16, masked>) and K5 spelled out."""
+    """nvcc -Xptxas -v output -> {kernel: "N registers, F B stack frame, S
+    B spill stores, L B spill loads"}, with the template arguments of K1
+    (encoder_pool_kernel<tile, bf16, masked>), K1 bf16's tensor-core
+    instance, K6's instances and K5 spelled out."""
+    names = (
+        (r"encoder_pool_kernelILi(\d+)ELb(\d)ELb(\d)E",
+         "encoder_pool_kernel<{}, bf16={}, masked={}>"),
+        (r"encoder_pool_bf16_kernelILb(\d)ELb(\d)E",
+         "encoder_pool_bf16_kernel<masked={}, flagship={}>"),
+        (r"encoder_pool_int8_kernelILb(\d)ELb(\d)E",
+         "encoder_pool_int8_kernel<masked={}, flagship={}>"),
+        (r"encoder_pool_int8_wide_kernelILb(\d)E",
+         "encoder_pool_int8_wide_kernel<masked={}>"),
+        (r"scatter_kernelILb(\d)E", "scatter_kernel<shared={}>"),
+        (r"\d+(pool_init|pool_decode|[a-z_]+_kernel)", "{}"))
     out, fn = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             fn = m.group(1)
-            k1 = re.search(r"encoder_pool_kernelILi(\d+)ELb(\d)ELb(\d)E", fn)
-            k5 = re.search(r"scatter_kernelILb(\d)E", fn)
-            k6 = re.search(r"encoder_pool_int8_kernelILb(\d)ELb(\d)E", fn)
-            short = re.search(r"\d+([a-z_]+_kernel)", fn)
-            fn = (f"encoder_pool_kernel<{k1.group(1)}, bf16={k1.group(2)}, "
-                  f"masked={k1.group(3)}>" if k1 else
-                  f"scatter_kernel<shared={k5.group(1)}>" if k5 else
-                  f"encoder_pool_int8_kernel<masked={k6.group(1)}, "
-                  f"flagship={k6.group(2)}>" if k6 else
-                  short.group(1) if short else fn)
+            for pattern, form in names:
+                k = re.search(pattern, fn)
+                if k:
+                    fn = form.format(*k.groups())
+                    break
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and fn:
-            spill = f"{m.group(1)} B spill stores, {m.group(2)} B spill loads"
-            out[fn] = spill
+            out[fn] = (f"{m.group(1)} B stack frame, {m.group(2)} B spill "
+                       f"stores, {m.group(3)} B spill loads")
         m = re.search(r"Used (\d+) registers", line)
         if m and fn:
             out[fn] = f"{m.group(1)} registers, " + out.get(fn, "")
@@ -306,44 +323,73 @@ def phase_device():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    logs = _cuda.build()
+    _cuda.build()
     print(f"built {sorted(_cuda.SOURCES)} in {time.perf_counter() - t0:.1f}s")
-    for name, log in logs.items():
-        for fn, info in ptxas_report(log).items():
+    for name in _cuda.SOURCES:
+        for fn, info in ptxas_report(_cuda.build_log(name)).items():
             print(f"  {name} {fn}: {info}")
+            expect(not fn.startswith(NO_SPILL)
+                   or "0 B spill stores, 0 B spill loads" in info,
+                   f"{fn} spills: {info}")
     torch.cuda.synchronize()
     return device
 
 
-def odd_width_k1(device):
-    """K1 on an engine of odd widths, N=1000, masked, at B=1 and at B=3
-    with a fully masked cloud (-inf), f32 and bf16, against the plain
-    version; its widths and tile come from encoder_tile."""
-    from gan_rl_3d_tpu_torch.ops import encoder_kernel as ek
+def _k1_case(x, layers, m, dtype, what):
+    """K1 against its plain version on one input: the same -inf, within
+    TOL_F32 scaled (f32) or TOL_BF16 relative (bf16) elsewhere. Returns
+    (the instance that ran, differing elements, the largest absolute
+    error, the output)."""
+    from gan_rl_3d_tpu_torch.ops import _cuda, encoder_kernel as ek
 
-    dims = (3, 24, 40, 72, 200, 8)
-    g = torch.Generator(device="cpu").manual_seed(17)
-    layers = [((torch.rand(k, c, generator=g) * 2 - 1) / k ** 0.5,
-               (torch.rand(c, generator=g) * 2 - 1) * 0.1)
-              for k, c in zip(dims[:-1], dims[1:])]
-    pc, mask = make_clouds(3, 1000, seed=18, device=device)
-    mask[1] = 0.0
-    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
-        lay = [(w.to(device, dtype), b.to(device, dtype)) for w, b in layers]
-        for x, m in ((pc[:1], mask[:1]), (pc, mask)):
-            out = ek.fused_encoder_pool(x, lay, m, compute_dtype=dtype)
-            ref = ek.fused_encoder_pool_plain(x, lay, m, compute_dtype=dtype)
-            fin = torch.isfinite(ref)
-            expect(torch.equal(torch.isneginf(out), torch.isneginf(ref))
-                   and bool(fin.any()), f"K1 odd widths {dtype}: bad output")
-            e = (scaled_err(out[fin], ref[fin]) if dtype == torch.float32
-                 else rel_err(out[fin], ref[fin]))
-            expect(e <= tol, f"K1 odd widths {dtype}: err {e:.3e}")
-        expect(bool(torch.isneginf(out[1]).all()),
-               "K1: a fully masked cloud is not -inf")
-    print(f"encoder_pool at widths {dims} (tile {ek.encoder_tile(dims)}), "
-          "N=1000, masked, B=1 and B=3 with a fully masked cloud: f32 and "
-          "bf16 agree with their plain versions; the masked cloud is -inf")
+    before = _cuda.launch_counts.copy()
+    out = ek.fused_encoder_pool(x, layers, m, compute_dtype=dtype)
+    ran = [k for k, v in _cuda.launch_counts.items() if v > before[k]]
+    ref = ek.fused_encoder_pool_plain(x, layers, m, compute_dtype=dtype)
+    fin = torch.isfinite(ref)
+    expect(out.shape == ref.shape and len(ran) == 1
+           and torch.equal(torch.isneginf(out), torch.isneginf(ref))
+           and bool(fin.any()), f"K1 {what} {dtype}: bad output ({ran})")
+    e = (scaled_err(out[fin], ref[fin]) if dtype == torch.float32
+         else rel_err(out[fin], ref[fin]))
+    expect(e <= (TOL_F32 if dtype == torch.float32 else TOL_BF16),
+           f"K1 {what} {dtype}: err {e:.3e}")
+    return (ran[0], int((out != ref).sum()),
+            float((out[fin] - ref[fin]).abs().max()), out)
+
+
+def odd_width_k1(device):
+    """K1 on engines of odd widths against the plain version, each instance
+    picked by the widths: (3, 24, 40, 72, 200, 8) (f32 on the CUDA cores,
+    bf16 on the tensor cores) at N=1000, masked, at B=1 and at B=3 with a
+    fully masked cloud (-inf); and (3, 64, 512, 128), past the tensor-core
+    instance's 256, through the CUDA-core bf16 instance at N=700 the same
+    way. Returns the largest absolute error of each instance."""
+    errs = {}
+    for dims, n, dtypes in (((3, 24, 40, 72, 200, 8), 1000,
+                             (torch.float32, torch.bfloat16)),
+                            ((3, 64, 512, 128), 700, (torch.bfloat16,))):
+        g = torch.Generator(device="cpu").manual_seed(17)
+        layers = [((torch.rand(k, c, generator=g) * 2 - 1) / k ** 0.5,
+                   (torch.rand(c, generator=g) * 2 - 1) * 0.1)
+                  for k, c in zip(dims[:-1], dims[1:])]
+        pc, mask = make_clouds(3, n, seed=18, device=device)
+        mask[1] = 0.0
+        for dtype in dtypes:
+            lay = [(w.to(device, dtype), b.to(device, dtype))
+                   for w, b in layers]
+            for x, m in ((pc[:1], mask[:1]), (pc, mask)):
+                ran, n_diff, err, out = _k1_case(x, lay, m, dtype,
+                                                 f"widths {dims}")
+                errs[ran] = max(errs.get(ran, 0.0), err)
+            expect(bool(torch.isneginf(out[1]).all()),
+                   "K1: a fully masked cloud is not -inf")
+            tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+            print(f"{ran} at widths {dims}, N={n}, masked, B=1 and B=3 "
+                  f"with a fully masked cloud: {n_diff} of {out.numel()} "
+                  f"elements differ from the plain version, max abs err "
+                  f"{err:.3e} (tol {tol:g}); the masked cloud is -inf")
+    return errs
 
 
 def _int8_case(x, qenc, m, what):
@@ -364,10 +410,13 @@ def int8_checks(device, qenc, pc, mask):
     """K6 against its plain version with torch.equal: the main path's
     shapes masked and unmasked, B=3 at N=1500 with a fully masked cloud,
     the ragged widths INT8_RAGGED at N=1000 (B=1, and B=3 with a fully
-    masked cloud), and a call after an in-place edit of one wq (the memo
-    repacks); and K6's divide against the IEEE one on INT8_DIVIDE_PAIRS
-    quotients. Returns the largest absolute difference (0)."""
-    from gan_rl_3d_tpu_torch.ops import encoder_kernel as ek
+    masked cloud), a call after an in-place edit of one wq (the memo
+    repacks), every width list of INT8_WIDTHS at N=1000 through the
+    instance its widths pick (B=3, masked with a fully masked cloud, and
+    unmasked), and the wide instance at the main path's shapes; and K6's
+    divide against the IEEE one on INT8_DIVIDE_PAIRS quotients. Returns
+    the largest absolute difference (0)."""
+    from gan_rl_3d_tpu_torch.ops import _cuda, encoder_kernel as ek
     from gan_rl_3d_tpu_torch.ops.quantize import quantize_encoder
 
     rpc, rmask = make_clouds(3, 1500, seed=9, device=device)
@@ -401,6 +450,36 @@ def int8_checks(device, qenc, pc, mask):
     expect(ek.packed_int8_encoder.packs == packs + 1
            and not torch.equal(after, before),
            "encoder_pool_int8: an in-place weight edit did not repack")
+    for dims in INT8_WIDTHS:
+        g = torch.Generator(device="cpu").manual_seed(29)
+        qw = quantize_encoder([
+            ((torch.rand(k, c, generator=g) * 2 - 1) / k ** 0.5,
+             (torch.rand(c, generator=g) * 2 - 1) * 0.1)
+            for k, c in zip(dims[:-1], dims[1:])])
+        qw = {"layer0": tuple(x.to(device) for x in qw["layer0"]),
+              "layers_q": [tuple(x.to(device) for x in layer)
+                           for layer in qw["layers_q"]]}
+        name = ("encoder_pool_int8" if ek.int8_instance(dims) == "mma"
+                else "encoder_pool_int8_wide")
+        for x, m in ((qpc, None), (qpc, qmask)):
+            before = _cuda.launch_counts[name]
+            d, n, out = _int8_case(x, qw, m, f"widths {dims}")
+            expect(_cuda.launch_counts[name] == before + 1,
+                   f"widths {dims} did not run {name}")
+            n_diff, n_all = n_diff + d, n_all + n
+        expect(bool(torch.isneginf(out[2]).all()),
+               f"encoder_pool_int8 {dims}: a fully masked cloud is not -inf")
+        print(f"{name} at widths {dims}, B=3, N=1000, masked (a fully "
+              "masked cloud) and unmasked: equal to the plain version")
+    wide = ek.pack_int8_encoder(qenc, "wide")
+    for m in (None, mask):
+        out = ek.encoder_pool_int8_packed(pc, wide, m)
+        ref = ek.fused_encoder_pool_int8_plain(pc, qenc, m)
+        expect(torch.equal(out, ref), "encoder_pool_int8_wide at the "
+               f"flagship widths: {int((out != ref).sum())} elements differ "
+               "from the plain version")
+    print(f"encoder_pool_int8_wide at the flagship widths (B={B_MAIN}, "
+          f"N={N_MAIN}, masked and unmasked): equal to the plain version")
     bad = ek.int8_divide_mismatches(INT8_DIVIDE_PAIRS, 0, device)
     expect(bad == 0, f"encoder_pool_int8: its divide differs from the IEEE "
            f"one on {bad} of {INT8_DIVIDE_PAIRS} quotients")
@@ -409,18 +488,19 @@ def int8_checks(device, qenc, pc, mask):
           "included)")
     print(f"encoder_pool_int8: equal to its plain version bit for bit, "
           f"{n_diff} of {n_all} elements differ (B={B_MAIN}, N={N_MAIN} and "
-          f"B=3, N=1500, masked and unmasked; widths {INT8_RAGGED}, N=1000, "
-          "B=1 and B=3 with a fully masked cloud); after an in-place edit "
-          "of one wq the bundle repacked and the result equals the plain "
-          "version's")
+          f"B=3, N=1500, masked and unmasked; widths {INT8_RAGGED} and "
+          f"{', '.join(map(str, INT8_WIDTHS))}, N=1000, B=1 and B=3 with a "
+          "fully masked cloud); after an in-place edit of one wq the bundle "
+          "repacked and the result equals the plain version's")
     return 0.0
 
 
 def big_batch_checks(device, masked):
     """B = BIG_BATCH clouds of N = M = 16 points, one more than grid.y
-    holds: K1 f32 (TOL_F32 scaled), K3 and K2 (TOL_DIST, settled indices
-    equal), K4 (TOL_GRAD_KERNEL scaled) and K5 (bit for bit) against their
-    plain versions, the whole Chamfer backward."""
+    holds: K1 f32 (TOL_F32 scaled) and bf16 on the tensor cores (TOL_BF16
+    relative), K3 and K2 (TOL_DIST, settled indices equal), K4
+    (TOL_GRAD_KERNEL scaled) and K5 (bit for bit) against their plain
+    versions, the whole Chamfer backward."""
     from gan_rl_3d_tpu_torch.ops import chamfer, encoder_kernel as ek
 
     bsz, n = BIG_BATCH, 16
@@ -434,6 +514,8 @@ def big_batch_checks(device, masked):
     e = scaled_err(ek.fused_encoder_pool(a, layers, am),
                    ek.fused_encoder_pool_plain(a, layers, am))
     expect(e <= TOL_F32, f"encoder_pool_f32 at B={bsz}: err {e:.3e}")
+    _k1_case(a, [(w.bfloat16(), z.bfloat16()) for w, z in layers], am,
+             torch.bfloat16, f"B={bsz}")
     d, i = chamfer.nearest_distances(a, b, b_mask=bm)
     rd, ri = chamfer.nearest_distances_plain(a, b, bm)
     top2 = chamfer._sqdist(a, b, bm).topk(2, dim=-1, largest=False).values
@@ -454,18 +536,25 @@ def big_batch_checks(device, masked):
 
 
 def phase_kernels(device, engine_f32, engine_bf16, engine_int8):
-    """Each kernel against its plain version at the main path's shapes."""
-    from gan_rl_3d_tpu_torch.ops import chamfer, encoder_kernel as ek
+    """Each kernel against its plain version at the main path's shapes,
+    each instance of K1 and K6 also at the widths that pick it."""
+    from gan_rl_3d_tpu_torch.ops import _cuda, chamfer, encoder_kernel as ek
 
     errs = {}
     pc, mask = make_clouds(B_MAIN, N_MAIN, seed=1, device=device)
-    for name, eng, dtype in (("encoder_pool_f32", engine_f32, torch.float32),
-                             ("encoder_pool_bf16", engine_bf16,
-                              torch.bfloat16)):
+    for name, eng, dtype, kernel in (
+            ("encoder_pool_f32", engine_f32, torch.float32,
+             ek.fused_encoder_pool),
+            ("encoder_pool_bf16", engine_bf16, torch.bfloat16,
+             ek.fused_encoder_pool),
+            ("encoder_pool_bf16_wide", engine_bf16, torch.bfloat16,
+             ek.encoder_pool_cuda_cores)):
         worst, worst_abs, n_diff, n_all = 0.0, 0.0, 0, 0
         for m in (None, mask):
-            out = ek.fused_encoder_pool(pc, eng["encoder"]["layers"], m,
-                                        compute_dtype=dtype)
+            before = _cuda.launch_counts[name]
+            out = kernel(pc, eng["encoder"]["layers"], m, compute_dtype=dtype)
+            expect(_cuda.launch_counts[name] == before + 1,
+                   f"{name} did not run at the flagship widths")
             ref = ek.fused_encoder_pool_plain(pc, eng["encoder"]["layers"], m,
                                               compute_dtype=dtype)
             expect(out.shape == ref.shape and bool(torch.isfinite(out).all()),
@@ -483,16 +572,18 @@ def phase_kernels(device, engine_f32, engine_bf16, engine_int8):
               f"differ (B={B_MAIN}, N={N_MAIN}, masked and unmasked)")
         expect(worst <= tol, f"{name} disagrees with its plain version")
         errs[name] = worst_abs
-    odd_width_k1(device)
+    for name, e in odd_width_k1(device).items():
+        errs[name] = max(errs[name], e)
     for masked in (False, True):
         big_batch_checks(device, masked)
     print(f"B={BIG_BATCH}, N=M=16, masked and unmasked: encoder_pool_f32, "
-          "nn_dist, nn_min, nn_gather and nn_scatter agree with their plain "
-          "versions (nn_scatter bit for bit)")
+          "encoder_pool_bf16, nn_dist, nn_min, nn_gather and nn_scatter "
+          "agree with their plain versions (nn_scatter bit for bit)")
     torch.cuda.synchronize()
 
     errs["encoder_pool_int8"] = int8_checks(device, engine_int8["encoder_q"],
                                             pc, mask)
+    errs["encoder_pool_int8_wide"] = 0.0
     torch.cuda.synchronize()
 
     a, _ = make_clouds(B_MAIN, N_MAIN, seed=2, device=device)
@@ -952,10 +1043,15 @@ def step_check(device, ae_model):
 KERNELS = {
     "encoder_pool_f32": ("gan_rl_3d_tpu_torch/csrc/encoder_pool.cu",
                          "gan_rl_3d_tpu/ops/encoder_kernel.py:151"),
-    "encoder_pool_bf16": ("gan_rl_3d_tpu_torch/csrc/encoder_pool.cu",
+    "encoder_pool_bf16": ("gan_rl_3d_tpu_torch/csrc/encoder_pool_bf16.cu",
                           "gan_rl_3d_tpu/ops/encoder_kernel.py:151"),
+    "encoder_pool_bf16_wide": ("gan_rl_3d_tpu_torch/csrc/encoder_pool.cu",
+                               "gan_rl_3d_tpu/ops/encoder_kernel.py:151"),
     "encoder_pool_int8": ("gan_rl_3d_tpu_torch/csrc/encoder_pool_int8.cu",
                           "gan_rl_3d_tpu/ops/encoder_kernel.py:249"),
+    "encoder_pool_int8_wide": (
+        "gan_rl_3d_tpu_torch/csrc/encoder_pool_int8_wide.cu",
+        "gan_rl_3d_tpu/ops/encoder_kernel.py:249"),
     "nn_dist": ("gan_rl_3d_tpu_torch/csrc/nn_dist.cu",
                 "gan_rl_3d_tpu/ops/chamfer.py:121"),
     "nn_min": ("gan_rl_3d_tpu_torch/csrc/nn_dist.cu",
@@ -969,6 +1065,12 @@ SERVING_KERNELS = ("encoder_pool_f32", "encoder_pool_bf16",
                    "encoder_pool_int8", "nn_dist", "nn_min")
 TRAINING_KERNELS = ("nn_dist", "nn_gather", "nn_scatter")
 EVAL_KERNELS = ("encoder_pool_f32", "nn_dist", "nn_min")
+# instances for widths the flagship does not have: run by the checks of
+# phase 2 (and timed at the flagship widths), on no main path
+WIDE_INSTANCES = ("encoder_pool_bf16_wide", "encoder_pool_int8_wide")
+# instances whose ptxas report must show no spills
+NO_SPILL = ("encoder_pool_bf16_kernel", "encoder_pool_int8_wide_kernel",
+            "encoder_pool_int8_kernel", "encoder_pool_kernel")
 SCAN_CENTRE = np.array([10.0, -2.0, 3.0])
 
 
@@ -1031,6 +1133,10 @@ def _bound(ops_s, nbytes):
 
 
 def phase_times(device, engine, engine_bf16, engine_q):
+    """Each serving kernel at B=64 and 4096, N=2048, the flagship widths,
+    beside its plain version and bound (the wide instances at the flagship
+    widths too, picked by hand: their widths are the flagship's and their
+    work the same); then complete_fast per engine."""
     from gan_rl_3d_tpu_torch.models import inference
     from gan_rl_3d_tpu_torch.ops import chamfer, encoder_kernel as ek
 
@@ -1038,35 +1144,57 @@ def phase_times(device, engine, engine_bf16, engine_q):
     for bsz in (B_MAIN, B_BIG):
         pc, _ = make_clouds(bsz, N_MAIN, seed=6, device=device)
         b, _ = make_clouds(bsz, N_MAIN, seed=7, device=device)
-        for name, eng, dtype in (("encoder_pool_f32", engine, torch.float32),
-                                 ("encoder_pool_bf16", engine_bf16,
-                                  torch.bfloat16)):
-            layers = eng["encoder"]["layers"]
-            reps = 20 if bsz == B_MAIN else 3
-            ms = timed_ms(lambda: ek.fused_encoder_pool(
-                pc, layers, compute_dtype=dtype), reps=reps)
-            plain = timed_ms(lambda: ek.fused_encoder_pool_plain(
-                pc, layers, compute_dtype=dtype), reps=reps)
+        reps = 20 if bsz == B_MAIN else 3
+        bf16_layers = engine_bf16["encoder"]["layers"]
+        dims = [3] + [w.shape[1] for w, _ in bf16_layers]
+        tile = ek.encoder_tile(dims)
+        plain = {}
+        for name, layers, dtype, kernel in (
+                ("encoder_pool_f32", engine["encoder"]["layers"],
+                 torch.float32, ek.fused_encoder_pool),
+                ("encoder_pool_bf16", bf16_layers, torch.bfloat16,
+                 ek.fused_encoder_pool),
+                ("encoder_pool_bf16_wide", bf16_layers, torch.bfloat16,
+                 ek.encoder_pool_cuda_cores)):
+            ms = timed_ms(lambda: kernel(pc, layers, compute_dtype=dtype),
+                          reps=reps)
+            # both bf16 instances compute the same function: one plain time
+            if dtype not in plain:
+                plain[dtype] = timed_ms(lambda: ek.fused_encoder_pool_plain(
+                    pc, layers, compute_dtype=dtype), reps=reps)
             bound, by = encoder_bound(bsz, N_MAIN, layers,
                                       dtype == torch.bfloat16)
-            tile = ek.encoder_tile([3] + [w.shape[1] for w, _ in layers])
-            rows[(name, bsz)] = dict(
-                ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                library_ms=None, tile=tile,
-                registers=ek.encoder_pool_registers(tile, dtype, False))
+            rows[(name, bsz)] = dict(ms=ms, plain_ms=plain[dtype],
+                                     bound_ms=bound, bound_by=by,
+                                     library_ms=None)
+            if name == "encoder_pool_bf16":
+                regs, local = ek.encoder_pool_bf16_attributes(
+                    False, tuple(dims[1:]) == INT8_FLAGSHIP)
+                rows[(name, bsz)].update(
+                    registers=regs, local_bytes=local,
+                    smem_bytes=ek.packed_bf16_encoder(layers).data.numel())
+            else:
+                rows[(name, bsz)].update(
+                    tile=tile, registers=ek.encoder_pool_registers(
+                        tile, dtype, False))
         qenc = engine_q["encoder_q"]
-        reps = 20 if bsz == B_MAIN else 3
-        ms = timed_ms(lambda: ek.fused_encoder_pool_int8(pc, qenc), reps=reps)
-        plain = timed_ms(lambda: ek.fused_encoder_pool_int8_plain(pc, qenc),
-                         reps=reps)
+        plain_q = timed_ms(lambda: ek.fused_encoder_pool_int8_plain(pc, qenc),
+                           reps=reps)
         bound, by, core_ms = int8_encoder_bound(bsz, N_MAIN, qenc)
-        packed = ek.packed_int8_encoder(qenc)
-        regs, local = ek.encoder_pool_int8_attributes(
-            False, packed.dims == INT8_FLAGSHIP)
-        rows[("encoder_pool_int8", bsz)] = dict(
-            ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-            library_ms=None, quantize_f32_ms=core_ms, registers=regs,
-            local_bytes=local, smem_bytes=packed.data.numel())
+        for name, packed in (
+                ("encoder_pool_int8", ek.packed_int8_encoder(qenc)),
+                ("encoder_pool_int8_wide", ek.pack_int8_encoder(qenc,
+                                                                "wide"))):
+            ms = timed_ms(lambda: ek.encoder_pool_int8_packed(pc, packed),
+                          reps=reps)
+            regs, local = ek.encoder_pool_int8_attributes(
+                False, packed.dims == INT8_FLAGSHIP, packed.instance)
+            smem = (packed.data.numel() if packed.instance == "mma"
+                    else ek.int8_wide_smem(packed.dims))
+            rows[(name, bsz)] = dict(
+                ms=ms, plain_ms=plain_q, bound_ms=bound, bound_by=by,
+                library_ms=None, quantize_f32_ms=core_ms, registers=regs,
+                local_bytes=local, smem_bytes=smem)
         torch.cuda.empty_cache()
         chunk = 256
         reps = 20 if bsz == B_MAIN else 2
@@ -1237,14 +1365,18 @@ def main() -> None:
     from gan_rl_3d_tpu_torch.convert import model_from_numpy
     from gan_rl_3d_tpu_torch.models import inference
 
+    from gan_rl_3d_tpu_torch.ops import _cuda
+
     model = model_from_numpy(init_numpy_model(_flagship(), seed=0),
                              device=device)
+    _cuda.launch_counts.clear()
     errs = phase_kernels(device, inference.prepare_inference_engine(model),
                          inference.prepare_inference_engine(
                              model, dtype=torch.bfloat16),
                          inference.prepare_inference_engine(
                              model, quantize_int8=True))
     errs.update(phase_grad_kernels(device))
+    checks = dict(_cuda.launch_counts)
     with tempfile.TemporaryDirectory() as tmp:
         engine, engine_bf16, engine_q, serving = phase_main(device, model,
                                                             Path(tmp))
@@ -1258,10 +1390,16 @@ def main() -> None:
         by_path = {"serving": serving.get(name, 0),
                    "training": training.get(name, 0),
                    "evaluation": evaluation.get(name, 0)}
+        expect(name in WIDE_INSTANCES or sum(by_path.values()) > 0,
+               f"{name} never launched on a main path")
+        expect(checks.get(name, 0) > 0, f"{name} never checked")
         row = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
-            "launches_by_path": by_path, "max_abs_err": errs[name],
+            "launches_by_path": by_path,
+            "launches_in_checks": checks.get(name, 0),
+            "on_main_path": name not in WIDE_INSTANCES,
+            "max_abs_err": errs[name],
             **rows[(name, B_MAIN)], "shape": f"B={B_MAIN}, N=M={N_MAIN}",
         }
         for big in (B_BIG, B_GRAD_BIG):
@@ -1269,7 +1407,8 @@ def main() -> None:
                 row[f"b{big}"] = rows[(name, big)]
         kernels.append(row)
     print("kernels: " + ", ".join(
-        f"{k['name']} x{k['launches']}" for k in kernels))
+        f"{k['name']} x{k['launches']} (checks x{k['launches_in_checks']})"
+        for k in kernels))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,7 +38,8 @@
 //   f32 in shared memory; the bf16 variant widens there. A full slab runs
 //   unrolled with no bounds test; only a ragged last slab tests k < K.
 // - Persistent blocks: as many as fit on the SMs (one at the flagship
-//   widths, 213 KB) walk over the B x ceil(N / kTile) tiles.
+//   widths, 213 KB) walk over the B x ceil(N / kTile) tiles. Their count
+//   is queried once per instance, shared memory and device (launch.cuh).
 // - Pooling: each thread takes the max over its valid points, the threads
 //   sharing channels combine by warp shuffles, and one atomicMax per
 //   channel per tile on the order-preserving int encoding (pool.cuh)
@@ -56,13 +57,17 @@
 // zero, so no -0 or NaN is summed in. The bf16 variant keeps the JAX
 // rounding points: the input and every layer output are rounded to bf16,
 // bf16 weights are widened to f32 and summed in f32, biases stay f32. Both
-// run on the CUDA cores; tensor cores are later work.
+// run on the CUDA cores. bf16 engines whose widths the tensor-core instance
+// takes (at most 256 after padding to 16) run csrc/encoder_pool_bf16.cu
+// instead; this bf16 variant takes the wider ones (encoder_kernel.py::
+// bf16_instance).
 
 #include <cuda_bf16.h>
 
 #include <climits>
 
 #include "common.cuh"
+#include "launch.cuh"
 #include "pool.cuh"
 
 namespace {
@@ -374,25 +379,17 @@ encoder_pool_kernel(const float* __restrict__ pc,
 template <int kTile, bool kBf16, bool kMasked>
 cudaError_t launch(cudaStream_t s, const float* pc, const float* mask,
                    const Layers& layers, const Layout& lay, int batch,
-                   int n_points, int* pooled) {
+                   int n_points, int device, int* pooled) {
   auto kernel = encoder_pool_kernel<kTile, kBf16, kMasked>;
   const int smem = lay.words * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int blocks = 0;
+  const cudaError_t err = resident_blocks(
+      reinterpret_cast<const void*>(kernel), kThreads, smem, device, &blocks);
   if (err != cudaSuccess) return err;
-  int device = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long tiles =
       static_cast<long long>(batch) * ((n_points + kTile - 1) / kTile);
   if (tiles > INT_MAX) return cudaErrorInvalidValue;
-  const int grid = static_cast<int>(
-      tiles < static_cast<long long>(sms) * per_sm ? tiles
-                                                   : sms * per_sm);
+  const int grid = static_cast<int>(tiles < blocks ? tiles : blocks);
   kernel<<<grid, kThreads, smem, s>>>(pc, mask, layers, lay, n_points,
                                       static_cast<int>(tiles), pooled);
   return cudaGetLastError();
@@ -402,17 +399,17 @@ template <int kTile>
 cudaError_t launch_tile(bool bf16, cudaStream_t s, const float* pc,
                         const float* mask, const Layers& layers,
                         const Layout& lay, int batch, int n_points,
-                        int* pooled) {
+                        int device, int* pooled) {
   if (bf16) {
     return mask ? launch<kTile, true, true>(s, pc, mask, layers, lay, batch,
-                                            n_points, pooled)
+                                            n_points, device, pooled)
                 : launch<kTile, true, false>(s, pc, mask, layers, lay, batch,
-                                             n_points, pooled);
+                                             n_points, device, pooled);
   }
   return mask ? launch<kTile, false, true>(s, pc, mask, layers, lay, batch,
-                                           n_points, pooled)
+                                           n_points, device, pooled)
               : launch<kTile, false, false>(s, pc, mask, layers, lay, batch,
-                                            n_points, pooled);
+                                            n_points, device, pooled);
 }
 
 }  // namespace
@@ -441,16 +438,17 @@ GRL_EXPORT int grl_encoder_pool_registers(int tile, int bf16, int masked) {
 // pc (B, N, 3) f32; mask (B, N) f32 or null; weights[l] (dims[l],
 // dims[l+1]) f32 (bf16 == 0) or bf16; biases[l] (dims[l+1]) f32; tile the
 // point tile the wrapper picked (128 or 32; encoder_kernel.py::
-// encoder_tile);
+// encoder_tile); device the current device's index (the caller knows it,
+// so no query runs a steady call);
 // pooled_bits (B, dims[n]) int32 scratch; out (B, dims[n]) f32.
 GRL_EXPORT int grl_encoder_pool(const float* pc, const float* mask,
                                 const void* const* weights,
                                 const float* const* biases, const int* dims,
                                 int n_layers, int bf16, int tile, int batch,
-                                int n_points, int* pooled_bits, float* out,
-                                void* stream) {
+                                int n_points, int device, int* pooled_bits,
+                                float* out, void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers || dims[0] != 3 || batch < 1 ||
-      n_points < 1 || (tile != 128 && tile != 32)) {
+      n_points < 1 || (tile != 128 && tile != 32) || device < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Layers layers{};
@@ -472,9 +470,9 @@ GRL_EXPORT int grl_encoder_pool(const float* pc, const float* mask,
   pool_init<<<(count + 255) / 256, 256, 0, s>>>(pooled_bits, count);
   const cudaError_t err =
       tile == 128 ? launch_tile<128>(bf16, s, pc, mask, layers, lay, batch,
-                                     n_points, pooled_bits)
+                                     n_points, device, pooled_bits)
                   : launch_tile<32>(bf16, s, pc, mask, layers, lay, batch,
-                                    n_points, pooled_bits);
+                                    n_points, device, pooled_bits);
   if (err != cudaSuccess) return static_cast<int>(err);
   pool_decode<<<(count + 255) / 256, 256, 0, s>>>(pooled_bits, out, count);
   return static_cast<int>(cudaGetLastError());

@@ -27,7 +27,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("encoder_pool", "encoder_pool_int8", "nn_dist", "nn_grad")
+SOURCES = ("encoder_pool", "encoder_pool_bf16", "encoder_pool_int8",
+           "encoder_pool_int8_wide", "nn_dist", "nn_grad")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -58,11 +59,12 @@ def library_path(name: str) -> Path:
 def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     """Compile the named sources that are not built yet, one nvcc process
     each, all started together. Returns nvcc's output (the ``-Xptxas -v``
-    register and shared-memory report) per source that was compiled."""
+    register, spill and shared-memory report) per source that was
+    compiled, and keeps it beside the library (``build_log``)."""
     procs = {}
     for name in names:
         out = library_path(name)
-        if out.exists():
+        if out.exists() and out.with_suffix(".log").exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -76,10 +78,17 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n"
                           f"{logs[name]}")
             continue
+        out.with_suffix(".log").write_text(logs[name])
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return logs
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for ``csrc/<name>.cu``, built first if needed."""
+    build((name,))
+    return library_path(name).with_suffix(".log").read_text()
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -6,7 +6,8 @@ bundle and timed at B=64 and 4096.
 
   python3 k6_breakdown.py
 
-Variants (text substitutions of the source; each must still match it):
+Variants (text substitutions of the source and of its shared header
+int8_quantize.cuh; each must still match one of them):
   ieee_divide     the quantizing divide as __fdiv_rn (the same bits),
   skip_zeros      that, with zero dividends kept off the divide (the same
                   bits),
@@ -50,16 +51,24 @@ VARIANTS = {
 
 
 def build(folder: Path) -> dict:
-    src = (_cuda.CSRC / "encoder_pool_int8.cu").read_text()
+    """Each variant's source and K6's shared header (int8_quantize.cuh),
+    substituted, in a folder of its own (a quoted include finds the
+    variant's header first), built side by side."""
+    files = {f: (_cuda.CSRC / f).read_text()
+             for f in ("encoder_pool_int8.cu", "int8_quantize.cuh")}
     procs = {}
     for name, subs in VARIANTS.items():
-        text = src
+        texts = dict(files)
         for old, new in subs:
-            if old not in text:
+            hits = [f for f, text in texts.items() if old in text]
+            if not hits:
                 sys.exit(f"k6_breakdown: {name}: {old!r} not in the source")
-            text = text.replace(old, new)
-        cu = folder / f"{name}.cu"
-        cu.write_text(text)
+            for f in hits:
+                texts[f] = texts[f].replace(old, new)
+        (folder / name).mkdir()
+        for f, text in texts.items():
+            (folder / name / f).write_text(text)
+        cu = folder / name / "encoder_pool_int8.cu"
         so = folder / f"lib{name}.so"
         procs[name] = (so, subprocess.Popen(
             [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I", str(_cuda.CSRC), "-o",

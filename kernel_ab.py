@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """A/B of two builds of the port's K1 (csrc/encoder_pool.cu), K6
 (csrc/encoder_pool_int8.cu) and K5 (csrc/nn_grad.cu) on one NVIDIA GPU:
-this checkout's kernels, through their wrappers, against another
-checkout's, built from its sources.
+this checkout's kernels, through their wrappers (which pick each
+instance by the widths), against another checkout's, built from its
+sources.
 
   python3 kernel_ab.py --other DIR [--kernels encoder_pool
                                     encoder_pool_int8 nn_grad]
@@ -10,13 +11,18 @@ checkout's, built from its sources.
 DIR is the root of the other checkout (for example the parent commit
 unpacked with ``git archive``). The other build is called through its own
 C entry points: ``grl_encoder_pool`` with or without the point tile
-(which it then takes from this checkout's ``encoder_tile``), and
+(which it then takes from this checkout's ``encoder_tile``) and the
+device index, and
 ``grl_nn_grad_b`` with or without a global scratch (which it then sizes
-by its ``grl_nn_grad_b_scratch``); K6 through the ``__dp4a`` build's
-``grl_encoder_pool_int8``, which takes int32 words of four int8 weights.
+by its ``grl_nn_grad_b_scratch``); K6 through ``grl_encoder_pool_int8``,
+the ``mma.sync`` build's on this checkout's packed bundle, or the
+``__dp4a`` build's on int32 words of four int8 weights.
 For each kernel it prints the count of output elements that differ
-between the two builds (K1 at B=64, N=2048 with the flagship engine's f32
-and bf16 weights, masked and unmasked; K6 at B=64 and 4096 with the
+between the two builds (K1 at B=64 and 4096, N=2048 with the flagship
+engine's f32 and bf16 weights, masked and unmasked, with the largest
+difference: this checkout's bf16 engine runs the tensor-core instance,
+which sums in another order than the other build's CUDA-core one; K6 at
+B=64 and 4096 with the
 flagship int8 engine, masked and unmasked; K5 on the Chamfer backward's
 inputs at B=64 masked and unmasked, B=512, and the adversarial cases of
 chip_smoke.py), then times both in turns (other, this, this, other).
@@ -44,7 +50,10 @@ def build_other(root: Path, name: str, out_dir: Path) -> ctypes.CDLL:
     subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", str(lib),
                     str(src)], check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(lib))
-    lib.takes_tile = "int bf16, int tile," in src.read_text()
+    text = src.read_text()
+    lib.takes_tile = "int bf16, int tile," in text
+    lib.takes_device = "int n_points, int device," in text
+    lib.takes_packed = "const void* packed, const int* dims" in text
     return lib
 
 
@@ -53,7 +62,8 @@ def other_encoder_pool(lib, pc, layers, mask, dtype):
 
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.grl_encoder_pool.argtypes = ([p, p, p, p, p, i, i]
-                                     + [i] * lib.takes_tile + [i, i, p, p, p])
+                                     + [i] * lib.takes_tile + [i, i]
+                                     + [i] * lib.takes_device + [p, p, p])
     lib.grl_encoder_pool.restype = i
     weights = [w.to(dtype).contiguous() for w, _ in layers]
     biases = [b.float().contiguous() for _, b in layers]
@@ -65,12 +75,13 @@ def other_encoder_pool(lib, pc, layers, mask, dtype):
     b_ptrs = (p * len(biases))(*[b.data_ptr() for b in biases])
     c_dims = (i * len(dims))(*dims)
     tile = [encoder_tile(dims)] if lib.takes_tile else []
+    device = [pc.device.index] if lib.takes_device else []
     err = lib.grl_encoder_pool(
         pc.data_ptr(), None if mask is None else mask.data_ptr(),
         ctypes.addressof(w_ptrs), ctypes.addressof(b_ptrs),
         ctypes.addressof(c_dims), len(weights),
-        int(dtype == torch.bfloat16), *tile, bsz, n, bits.data_ptr(),
-        out.data_ptr(), _cuda.stream_of(pc))
+        int(dtype == torch.bfloat16), *tile, bsz, n, *device,
+        bits.data_ptr(), out.data_ptr(), _cuda.stream_of(pc))
     if err:
         raise RuntimeError(f"other encoder_pool: CUDA error {err}")
     return out
@@ -98,11 +109,33 @@ def other_scatter(lib, idx, da, m):
 
 
 def other_encoder_pool_int8(lib, pc, qenc, mask, words=None):
-    """The other build's K6 through its C entry, the ``__dp4a`` one: each
-    layer's int8 weights as int32 words of four along K (byte j of word
-    [k4, c] is wq[4 k4 + j, c]), with separate scale and bias pointers;
-    ``words`` holds them packed once (``int8_words``)."""
+    """The other build's K6 through its C entry: the ``mma.sync`` one on
+    this checkout's packed bundle in its ``mma.sync`` layout (which that
+    build reads), or the ``__dp4a`` one on each layer's int8 weights as
+    int32 words of four along K (byte j of word [k4, c] is wq[4 k4 + j,
+    c]), with separate scale and bias pointers; ``words`` holds them
+    packed once (``int8_words``)."""
+    from gan_rl_3d_tpu_torch.ops import encoder_kernel as ek
+
     p, i = ctypes.c_void_p, ctypes.c_int
+    bsz, n, _ = pc.shape
+    if lib.takes_packed:
+        packed = ek.packed_int8_encoder(qenc)
+        lib.grl_encoder_pool_int8.argtypes = [p, p, p, p] + [i] * 6 + [p] * 3
+        lib.grl_encoder_pool_int8.restype = i
+        bits = torch.empty((bsz, packed.c_last), dtype=torch.int32,
+                           device=pc.device)
+        out = torch.empty((bsz, packed.c_last), device=pc.device)
+        err = lib.grl_encoder_pool_int8(
+            pc.data_ptr(), None if mask is None else mask.data_ptr(),
+            packed.data.data_ptr(), ctypes.addressof(packed.c_dims),
+            len(packed.dims) - 1, packed.c_last, bsz, n,
+            torch.cuda.get_device_properties(pc.device).multi_processor_count,
+            pc.device.index, bits.data_ptr(), out.data_ptr(),
+            _cuda.stream_of(pc))
+        if err:
+            raise RuntimeError(f"other encoder_pool_int8: CUDA error {err}")
+        return out
     lib.grl_encoder_pool_int8.argtypes = [p] * 8 + [i, i, i, p, p, p]
     lib.grl_encoder_pool_int8.restype = i
     layers = qenc["layers_q"]
@@ -113,7 +146,6 @@ def other_encoder_pool_int8(lib, pc, qenc, mask, words=None):
     scales = [s.float().reshape(-1).contiguous() for _, s, _ in layers]
     biases = [b.float().reshape(-1).contiguous() for _, _, b in layers]
     dims = [w0.shape[1]] + [wq.shape[1] for wq, _, _ in layers]
-    bsz, n, _ = pc.shape
     bits = torch.empty((bsz, dims[-1]), dtype=torch.int32, device=pc.device)
     out = torch.empty((bsz, dims[-1]), device=pc.device)
     ptrs = [(p * len(layers))(*[x.data_ptr() for x in xs])
@@ -146,6 +178,12 @@ def in_turns(label, other_fn, this_fn, timer):
 
 
 def ab_encoder_pool(lib, device):
+    """K1 of the two builds on the flagship engine at B=64 and 4096, N=2048,
+    masked and unmasked: f32 (the other build's f32 instance) with its
+    differing elements, expected 0; bf16, this checkout's instance by the
+    widths against the other build's bf16 instance, with its differing
+    elements and largest difference (absolute, and relative to the other
+    build's largest |output|); then times in turns."""
     from gan_rl_3d_tpu_torch.convert import model_from_numpy
     from gan_rl_3d_tpu_torch.models import inference
     from gan_rl_3d_tpu_torch.ops import encoder_kernel as ek
@@ -156,25 +194,28 @@ def ab_encoder_pool(lib, device):
         layers = inference.prepare_inference_engine(
             model, dtype=dtype)["encoder"]["layers"]
         name = "f32" if dtype == torch.float32 else "bf16"
-        pc, mask = chip_smoke.make_clouds(chip_smoke.B_MAIN,
-                                          chip_smoke.N_MAIN, 1, device)
-        n_diff, n_all = 0, 0
-        for m in (None, mask):
-            mine = ek.fused_encoder_pool(pc, layers, m, compute_dtype=dtype)
-            theirs = other_encoder_pool(lib, pc, layers, m, dtype)
-            n_diff += differ(mine, theirs)
-            n_all += mine.numel()
-        print(f"encoder_pool_{name}: {n_diff} of {n_all} elements differ "
-              f"from the other build (B={chip_smoke.B_MAIN}, "
-              f"N={chip_smoke.N_MAIN}, masked and unmasked)")
         for bsz, reps in ((chip_smoke.B_MAIN, 20), (chip_smoke.B_BIG, 3)):
-            pc, _ = chip_smoke.make_clouds(bsz, chip_smoke.N_MAIN, 6, device)
+            pc, mask = chip_smoke.make_clouds(bsz, chip_smoke.N_MAIN, 1,
+                                              device)
+            n_diff, n_all, worst, scale = 0, 0, 0.0, 0.0
+            for m in (None, mask):
+                mine = ek.fused_encoder_pool(pc, layers, m,
+                                             compute_dtype=dtype)
+                theirs = other_encoder_pool(lib, pc, layers, m, dtype)
+                n_diff += differ(mine, theirs)
+                n_all += mine.numel()
+                worst = max(worst, float((mine - theirs).abs().max()))
+                scale = max(scale, float(theirs.abs().max()))
+            print(f"encoder_pool_{name}: {n_diff} of {n_all} elements differ "
+                  f"from the other build, largest difference {worst:.3e} "
+                  f"({worst / scale:.3e} of its largest |output|; B={bsz}, "
+                  f"N={chip_smoke.N_MAIN}, masked and unmasked)")
             in_turns(f"encoder_pool_{name} B={bsz}",
                      lambda: other_encoder_pool(lib, pc, layers, None, dtype),
                      lambda: ek.fused_encoder_pool(pc, layers,
                                                    compute_dtype=dtype),
                      lambda fn: chip_smoke.timed_ms(fn, reps=reps))
-            del pc
+            del pc, mask
             torch.cuda.empty_cache()
 
 

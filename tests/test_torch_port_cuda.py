@@ -134,6 +134,125 @@ def test_encoder_pool_kernel_refuses_what_no_tile_fits(cuda):
         ek.fused_encoder_pool(pc, _layers((3, 908, 908, 8), 18, cuda))
 
 
+EVERY_WIDTH = [(3, 24, 40, 72, 200, 8), (3, 64, 512, 128), (3, 512, 512, 96),
+               (3, 907, 907, 8), (3, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", EVERY_WIDTH)
+def test_encoder_pool_bf16_instance_follows_the_widths(cuda, dims):
+    """K1 bf16 runs the instance that bf16_instance names (the tensor-core
+    one up to 256 after padding, the CUDA-core one above), counted under
+    its own name, within 2e-2 of the plain version at N=1000, masked with
+    a fully masked cloud (-inf) and unmasked."""
+    name = {"mma": "encoder_pool_bf16",
+            "wide": "encoder_pool_bf16_wide"}[ek.bf16_instance(dims)]
+    layers = [(w.bfloat16(), b.bfloat16()) for w, b in _layers(dims, 31, cuda)]
+    pc, mask = _clouds(3, 1000, 32, cuda)
+    mask[2] = 0.0
+    for m in (None, mask):
+        before = _cuda.launch_counts.copy()
+        out = ek.fused_encoder_pool(pc, layers, m,
+                                    compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert _cuda.launch_counts[name] == before[name] + 1
+        assert sum(_cuda.launch_counts.values()) == sum(before.values()) + 1
+        ref = ek.fused_encoder_pool_plain(pc, layers, m,
+                                          compute_dtype=torch.bfloat16)
+        assert torch.equal(torch.isneginf(out), torch.isneginf(ref))
+        fin = torch.isfinite(ref)
+        err = float((out[fin] - ref[fin]).abs().max() / ref[fin].abs().max())
+        assert err <= 2e-2, err
+    assert bool(torch.isneginf(out[2]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", EVERY_WIDTH)
+def test_encoder_pool_int8_takes_every_width(cuda, dims):
+    """The int8 engine's K6 at every width list K1 takes, through the
+    instance int8_instance names (the wide one above 256), bit for bit
+    equal to the plain version, masked with a fully masked cloud (-inf)
+    and unmasked."""
+    name = {"mma": "encoder_pool_int8",
+            "wide": "encoder_pool_int8_wide"}[ek.int8_instance(dims)]
+    qenc = _qenc(dims, 33, cuda)
+    pc, mask = _clouds(3, 1000, 34, cuda)
+    mask[0] = 0.0
+    for m in (None, mask):
+        before = _cuda.launch_counts[name]
+        out = ek.fused_encoder_pool_int8(pc, qenc, m)
+        torch.cuda.synchronize()
+        assert _cuda.launch_counts[name] == before + 1
+        ref = ek.fused_encoder_pool_int8_plain(pc, qenc, m)
+        assert torch.equal(out, ref), int((out != ref).sum())
+    assert bool(torch.isneginf(out[0]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_wide_instances_at_the_flagship_widths(cuda, masked):
+    """The instances for wide layers, called at the flagship widths (as
+    chip_smoke.py times them): K6's wide instance equal to its mma.sync
+    instance and the plain version bit for bit, the CUDA-core K1 bf16
+    within 2e-2 of the plain version."""
+    qenc = _qenc(DIMS, 35, cuda)
+    pc, mask = _clouds(4, 2048, 36, cuda)
+    m = mask if masked else None
+    wide = ek.encoder_pool_int8_packed(pc, ek.pack_int8_encoder(qenc, "wide"),
+                                       m)
+    assert torch.equal(wide, ek.fused_encoder_pool_int8(pc, qenc, m))
+    assert torch.equal(wide, ek.fused_encoder_pool_int8_plain(pc, qenc, m))
+    layers = [(w.bfloat16(), b.bfloat16()) for w, b in _layers(DIMS, 37, cuda)]
+    before = _cuda.launch_counts["encoder_pool_bf16_wide"]
+    out = ek.encoder_pool_cuda_cores(pc, layers, m,
+                                     compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts["encoder_pool_bf16_wide"] == before + 1
+    ref = ek.fused_encoder_pool_plain(pc, layers, m,
+                                      compute_dtype=torch.bfloat16)
+    assert float((out - ref).abs().max() / ref.abs().max()) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_launch_geometry_is_kept_across_shared_memory_sizes(cuda):
+    """One instance launched at widths that need more, then less, then more
+    shared memory (K1 f32's 32-point tile; K6's wide instance) stays equal
+    to the plain version: the cached geometry never lowers the limit that
+    a larger launch needs."""
+    pc, mask = _clouds(2, 300, 38, cuda)
+    for dims in ((3, 907, 907, 8), (3, 64, 512, 128), (3, 907, 907, 8)):
+        layers = _layers(dims, 39, cuda)
+        out = ek.fused_encoder_pool(pc, layers, mask)
+        ref = ek.fused_encoder_pool_plain(pc, layers, mask)
+        assert float((out - ref).abs().max()) <= 1e-4 * max(
+            1.0, float(ref.abs().max()))
+        qenc = _qenc(dims, 40, cuda)
+        assert torch.equal(ek.fused_encoder_pool_int8(pc, qenc, mask),
+                           ek.fused_encoder_pool_int8_plain(pc, qenc, mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source,kernel", [
+    ("encoder_pool_bf16", "encoder_pool_bf16_kernel"),
+    ("encoder_pool_int8_wide", "encoder_pool_int8_wide_kernel"),
+    ("encoder_pool_int8", "encoder_pool_int8_kernel"),
+    ("encoder_pool", "encoder_pool_kernel")])
+def test_instances_do_not_spill(cuda, source, kernel):
+    """ptxas reports no spill for any instance of K1 or K6, and at most
+    255 registers a thread."""
+    report = chip_smoke.ptxas_report(_cuda.build_log(source))
+    found = {k: v for k, v in report.items() if k.startswith(kernel + "<")}
+    assert found, report
+    for name, info in found.items():
+        assert "0 B spill stores, 0 B spill loads" in info, (name, info)
+        assert int(info.split()[0]) <= 255, (name, info)
+    if source == "encoder_pool_bf16":
+        for masked in (False, True):
+            for flagship in (False, True):
+                regs, _ = ek.encoder_pool_bf16_attributes(masked, flagship)
+                assert 0 < regs <= 255
+
+
 def _qenc(dims, seed, device):
     return tree_map(lambda x: x.to(device),
                     quantize_encoder(_layers(dims, seed)))
@@ -214,8 +333,8 @@ def test_encoder_pool_int8_divide_is_the_ieee_divide(cuda):
 @pytest.mark.cuda
 def test_encoder_pool_int8_checks_its_inputs(cuda):
     pc, _ = _clouds(2, 64, 6, cuda)
-    with pytest.raises(ValueError, match="registers: widths up to 256"):
-        ek.fused_encoder_pool_int8(pc, _qenc((3, 16, 264), 7, cuda))
+    with pytest.raises(ValueError, match="exceed K6's shared memory"):
+        ek.fused_encoder_pool_int8(pc, _qenc((3, 16, 1800), 7, cuda))
     qenc = _qenc(DIMS, 7, cuda)
     wq, s_w, b = qenc["layers_q"][0]
     with pytest.raises(ValueError, match="int8"):
@@ -391,14 +510,15 @@ def test_evaluate_completion_on_card_matches_cpu(cuda):
 @pytest.mark.parametrize("masked", [False, True])
 def test_kernels_take_batches_past_grid_y(cuda, masked):
     """B = 65,537 clouds of N = M = 16 points, one more than grid.y holds:
-    K1 (f32, 1e-4 scaled), K3 and K2 (1e-3, settled indices equal), K4
+    K1 (f32, 1e-4 scaled; bf16 on the tensor cores, 2e-2 relative), K3 and
+    K2 (1e-3, settled indices equal), K4
     (1e-5 scaled) and K5 (bit for bit) against their plain versions, so
     the whole Chamfer backward is covered (chip_smoke.big_batch_checks)."""
     before = _cuda.launch_counts.copy()
     chip_smoke.big_batch_checks(cuda, masked)
     torch.cuda.synchronize()
-    for name in ("encoder_pool_f32", "nn_dist", "nn_min", "nn_gather",
-                 "nn_scatter"):
+    for name in ("encoder_pool_f32", "encoder_pool_bf16", "nn_dist",
+                 "nn_min", "nn_gather", "nn_scatter"):
         assert _cuda.launch_counts[name] > before[name], name
 
 

@@ -162,10 +162,17 @@ def test_pack_memo_packs_once_and_again_after_an_in_place_edit():
 
 
 def test_packer_refuses_what_the_kernel_cannot_take():
-    with pytest.raises(ValueError, match="widths up to 256"):
-        ek.pack_int8_encoder(_qenc((3, 16, 257), 9))
+    """Widths the mma.sync instance cannot take (past 256 after padding, or
+    a bundle past shared memory) select the wide instance; the packer
+    refuses what no instance takes, and the mma.sync layout for widths
+    that only the wide instance takes."""
+    assert ek.pack_int8_encoder(_qenc((3, 16, 257), 9)).instance == "wide"
+    assert ek.pack_int8_encoder(
+        _qenc((3, 256, 256, 256, 256, 256, 8), 10)).instance == "wide"
     with pytest.raises(ValueError, match="exceed K6's shared memory"):
-        ek.pack_int8_encoder(_qenc((3, 256, 256, 256, 256, 256, 8), 10))
+        ek.pack_int8_encoder(_qenc((3, 16, 1800), 9))
+    with pytest.raises(ValueError, match="does not take"):
+        ek.pack_int8_encoder(_qenc((3, 16, 257), 9), "mma")
     qenc = _qenc(RAGGED, 11)
     wq, s_w, b = qenc["layers_q"][0]
     with pytest.raises(ValueError, match="int8"):
