@@ -7,7 +7,7 @@ Phases, each failing the run if it fails:
   1. device: require CUDA, print the card's name and power limit, build
      every kernel from csrc/ with nvcc (sm_90a), one process per source,
      and print each kernel's registers, stack and spills (no instance of
-     K1 or K6 may spill);
+     K1, K6, K3 or K2 may spill);
   2. kernels vs their plain PyTorch versions at the main paths' shapes
      (B=64, N=M=2048, masked and unmasked): every instance of K1 (f32; bf16
      on the tensor cores and on the CUDA cores, also at odd widths with a
@@ -16,7 +16,11 @@ Phases, each failing the run if it fails:
      K6 bit for bit (also at B=3, N=1500 with a fully masked cloud, at
      ragged widths, after an in-place weight edit, at every width list of
      INT8_WIDTHS through the instance its widths pick, and its wide
-     instance at the main shapes), K3, K2; K4 (gather) and K5
+     instance at the main shapes), K3, K2 (also: K2's distances equal
+     K3's bit for bit, a mask of ones equals no mask, exact duplicates
+     within a sub-tile and across the sub-tile and tile boundaries give
+     the first copy, ragged shapes with a fully masked cloud); K4 (gather)
+     and K5
      (scatter), K5 bit for bit, also on adversarial targets (all on one,
      all distinct, M > N, N > M, past shared memory, B=2 with
      N=M=20000) and twice for identical bits; the Chamfer gradient by the
@@ -41,7 +45,8 @@ Phases, each failing the run if it fails:
   5. times: each kernel (every instance of K1 and K6 at the flagship
      widths), its plain version, the least time the card could take
      (bound) and a library yardstick (registers a thread and shared memory
-     beside their times), at B=64 (and
+     beside their times; K3 and K2 also as CUDA-graph device time, with
+     R and C), at B=64 (and
      B=4096 for the serving kernels, B=512 for K4 and K5), the time per
      ``complete_fast`` call at B=64 and B=4096 (f32, bf16 and int8 engines), and per
      ``ae_train_step`` at B=64 in f32 and bf16_selective, with a
@@ -111,6 +116,12 @@ INT8_FLAGSHIP = (64, 128, 128, 256, 128)  # K6's compile-time instance
 INT8_WIDTHS = ((3, 24, 40, 72, 200, 8), (3, 64, 512, 128), (3, 512, 512, 96),
                (3, 907, 907, 8), (3, 100))
 INT8_DIVIDE_PAIRS = 1 << 31  # K6's divide against __fdiv_rn (about 0.5 s)
+# K3/K2: (N, M) off every tile boundary, checked at B=3 against the plain
+# version; pairs (j, j') with b[j'] = b[j] within one 8-point sub-tile, and
+# straddling the sub-tile and the 256-point tile boundaries (M = 2048)
+NN_RAGGED = ((1, 1), (7, 3000), (1001, 777), (2048, 2048))
+NN_TIES = ((5, 11), (250, 260), (252, 253), (255, 256), (678, 690),
+           (1020, 1030), (1000, 1500), (0, 2047))
 TRACE_STEPS = 5     # ae_train_steps traced by torch.profiler
 TRACE_TOP = 12      # kernels listed by their device time
 
@@ -284,6 +295,8 @@ def ptxas_report(log: str) -> dict:
         (r"encoder_pool_int8_wide_kernelILb(\d)E",
          "encoder_pool_int8_wide_kernel<masked={}>"),
         (r"scatter_kernelILb(\d)E", "scatter_kernel<shared={}>"),
+        (r"nn_kernelILb(\d)ELb(\d)E", "nn_kernel<keep_idx={}, masked={}>"),
+        (r"nn_decodeILb(\d)E", "nn_decode<keep_idx={}>"),
         (r"\d+(pool_init|pool_decode|[a-z_]+_kernel)", "{}"))
     out, fn = {}, None
     for line in log.splitlines():
@@ -535,6 +548,139 @@ def big_batch_checks(device, masked):
            f"nn_scatter at B={bsz} differs from its plain version")
 
 
+def nn_vs_plain(a, b, bm):
+    """K3 and K2 against their plain versions: (K3's largest distance
+    error, over its distances and those of the neighbours it chose; K2's;
+    the settled query points, those whose two nearest squared distances
+    are more than TIE_GAP apart, whose index differs)."""
+    from gan_rl_3d_tpu_torch.ops import chamfer
+
+    d, i = chamfer.nearest_distances(a, b, b_mask=bm)
+    rd, ri = chamfer.nearest_distances_plain(a, b, bm)
+    d2 = chamfer._sqdist(a, b, bm)
+    top2 = d2.topk(min(2, b.shape[1]), dim=-1, largest=False).values
+    settled = (top2[..., -1] - top2[..., 0]) > TIE_GAP
+    mismatched = int(((i != ri) & settled).sum())
+    # where the index may differ, the chosen neighbours' distances agree
+    chosen = torch.sqrt(torch.clamp(
+        d2.gather(-1, i.long()[..., None])[..., 0], min=1e-12))
+    e3 = max(float((d - rd).abs().max()), float((chosen - rd).abs().max()))
+    e2 = float((chamfer.nearest_min_distances(a, b)
+                - chamfer.nearest_min_distances_plain(a, b)).abs().max())
+    return e3, e2, mismatched
+
+
+def nn_k2_equals_k3(device):
+    """K2's distances equal K3's unmasked ones bit for bit (the same min),
+    at B=64, N=M=2048 and at every NN_RAGGED shape."""
+    from gan_rl_3d_tpu_torch.ops import chamfer
+
+    shapes = [(B_MAIN, N_MAIN, N_MAIN)] + [(3, n, m) for n, m in NN_RAGGED]
+    for k, (bsz, n, m) in enumerate(shapes):
+        a, _ = make_clouds(bsz, n, seed=40 + k, device=device)
+        b, _ = make_clouds(bsz, m, seed=50 + k, device=device)
+        expect(torch.equal(chamfer.nearest_min_distances(a, b),
+                           chamfer.nearest_distances(a, b)[0]),
+               f"nn_min differs from nn_dist's distances at B={bsz}, N={n}, "
+               f"M={m}")
+
+
+def nn_ones_mask(device):
+    """K3 with a b_mask of all ones equals K3 unmasked bit for bit, in dist
+    and idx, at B=64, N=M=2048."""
+    from gan_rl_3d_tpu_torch.ops import chamfer
+
+    a, _ = make_clouds(B_MAIN, N_MAIN, seed=41, device=device)
+    b, _ = make_clouds(B_MAIN, N_MAIN, seed=51, device=device)
+    ones = torch.ones(B_MAIN, N_MAIN, device=device)
+    d, i = chamfer.nearest_distances(a, b)
+    dm, im = chamfer.nearest_distances(a, b, b_mask=ones)
+    expect(torch.equal(d, dm) and torch.equal(i, im),
+           "nn_dist with a mask of ones differs from unmasked")
+
+
+def nn_tie_inputs(device, masked):
+    """B=64 clouds of 2048 points where b[j'] = b[j] for each (j, j') of
+    NN_TIES and query point 3 + 37 t of a sits on pair t's point; masked:
+    a tenth of b masked, never a copy."""
+    a, _ = make_clouds(B_MAIN, N_MAIN, seed=42, device=device)
+    b, _ = make_clouds(B_MAIN, N_MAIN, seed=52, device=device)
+    queries = [3 + 37 * t for t in range(len(NN_TIES))]
+    for q, (j, dup) in zip(queries, NN_TIES):
+        b[:, dup] = b[:, j]
+        a[:, q] = b[:, j]
+    bm = None
+    if masked:
+        g = torch.Generator(device=device).manual_seed(53)
+        bm = (torch.rand(B_MAIN, N_MAIN, generator=g, device=device)
+              > 0.1).float()
+        bm[:, [p for pair in NN_TIES for p in pair]] = 1.0
+    return a, b, bm, queries
+
+
+def nn_duplicate_ties(device):
+    """Exact duplicates in b within a sub-tile and straddling the sub-tile
+    and tile boundaries (NN_TIES): K3 returns the first copy for the query
+    point on it, as the plain version does, with the same distance; masked
+    and unmasked."""
+    from gan_rl_3d_tpu_torch.ops import chamfer
+
+    firsts = torch.tensor([j for j, _ in NN_TIES], device=device)
+    for masked in (False, True):
+        a, b, bm, queries = nn_tie_inputs(device, masked)
+        rd, ri = chamfer.nearest_distances_plain(a, b, bm)
+        expect(bool((ri[:, queries] == firsts).all()),
+               "the plain version does not return the first copy")
+        d, i = chamfer.nearest_distances(a, b, b_mask=bm)
+        expect(bool((i[:, queries] == firsts).all()),
+               f"nn_dist (masked {masked}) does not return the first copy "
+               "of a duplicated point")
+        expect(float((d - rd).abs().max()) <= TOL_DIST,
+               f"nn_dist on duplicates (masked {masked}): distances")
+
+
+def nn_ragged(device):
+    """K3 and K2 at every (N, M) of NN_RAGGED, B=3, masked with one cloud
+    fully masked, and unmasked, against the plain version (TOL_DIST, no
+    settled index differing); the fully masked cloud's indices are 0, as
+    the plain version's. Returns the largest distance errors of K3 and
+    K2."""
+    from gan_rl_3d_tpu_torch.ops import chamfer
+
+    worst = [0.0, 0.0]
+    for k, (n, m) in enumerate(NN_RAGGED):
+        a, _ = make_clouds(3, n, seed=60 + k, device=device)
+        b, bm = make_clouds(3, m, seed=70 + k, device=device)
+        bm[1] = 0.0
+        for mask in (None, bm):
+            e3, e2, mismatched = nn_vs_plain(a, b, mask)
+            expect(max(e3, e2) <= TOL_DIST and mismatched == 0,
+                   f"nn_dist/nn_min at N={n}, M={m} (masked "
+                   f"{mask is not None}): err {e3:.3e} / {e2:.3e}, "
+                   f"{mismatched} settled indices differ")
+            worst = [max(worst[0], e3), max(worst[1], e2)]
+        _, i = chamfer.nearest_distances(a, b, b_mask=bm)
+        expect(bool((i[1] == 0).all()), f"nn_dist at N={n}, M={m}: a fully "
+               "masked cloud's indices are not 0")
+    return worst
+
+
+def nn_checks(device):
+    """Every K3/K2 check past the main shapes; returns the largest
+    distance errors of K3 and K2 against their plain versions."""
+    nn_k2_equals_k3(device)
+    nn_ones_mask(device)
+    nn_duplicate_ties(device)
+    worst = nn_ragged(device)
+    print(f"nn_dist/nn_min: K2 equals K3's unmasked distances bit for bit "
+          f"(B={B_MAIN}, N=M={N_MAIN} and N, M in {NN_RAGGED}); a mask of "
+          "ones equals no mask; duplicates at " + str(NN_TIES) + " give the "
+          "first copy; ragged "
+          f"shapes with a fully masked cloud: max dist err {max(worst):.3e} "
+          f"(tol {TOL_DIST:g}), no settled index differs")
+    return worst
+
+
 def phase_kernels(device, engine_f32, engine_bf16, engine_int8):
     """Each kernel against its plain version at the main path's shapes,
     each instance of K1 and K6 also at the widths that pick it."""
@@ -588,35 +734,16 @@ def phase_kernels(device, engine_f32, engine_bf16, engine_int8):
 
     a, _ = make_clouds(B_MAIN, N_MAIN, seed=2, device=device)
     b, b_mask = make_clouds(B_MAIN, N_MAIN, seed=3, device=device)
-    worst_d, worst_i = 0.0, 0
+    e3, e2, worst_i = 0.0, 0.0, 0
     for bm in (None, b_mask):
-        d, i = chamfer.nearest_distances(a, b, b_mask=bm)
-        rd, ri = chamfer.nearest_distances_plain(a, b, bm)
-        worst_d = max(worst_d, float((d - rd).abs().max()))
-        d2 = chamfer._sqdist(a, b, bm)
-        top2 = d2.topk(2, dim=-1, largest=False).values
-        settled = (top2[..., 1] - top2[..., 0]) > TIE_GAP
-        mismatched = int(((i != ri) & settled).sum())
-        worst_i = max(worst_i, mismatched)
-        # where the index may differ, the chosen neighbours' distances agree
-        chosen = torch.sqrt(torch.clamp(
-            d2.gather(-1, i.long()[..., None])[..., 0], min=1e-12))
-        worst_d = max(worst_d, float((chosen - rd).abs().max()))
-        del d2
-    print(f"nn_dist: max dist err {worst_d:.3e} (tol {TOL_DIST:g}), "
-          f"{worst_i} settled index mismatches")
-    expect(worst_d <= TOL_DIST and worst_i == 0, "nn_dist disagrees")
-    errs["nn_dist"] = worst_d
-    e = float((chamfer.nearest_min_distances(a, b)
-               - chamfer.nearest_min_distances_plain(a, b)).abs().max())
-    print(f"nn_min: max dist err {e:.3e} (tol {TOL_DIST:g})")
-    expect(e <= TOL_DIST, "nn_min disagrees")
-    errs["nn_min"] = e
-    # a ragged size, off every tile boundary
-    ra, rb = a[:3, :1001], b[:3, :777]
-    e = float((chamfer.nearest_min_distances(ra, rb)
-               - chamfer.nearest_min_distances_plain(ra, rb)).abs().max())
-    expect(e <= TOL_DIST, f"nn_min ragged disagrees ({e})")
+        d3, d2, mismatched = nn_vs_plain(a, b, bm)
+        e3, e2, worst_i = max(e3, d3), max(e2, d2), max(worst_i, mismatched)
+    print(f"nn_dist: max dist err {e3:.3e}, nn_min {e2:.3e} (tol "
+          f"{TOL_DIST:g}), {worst_i} settled index mismatches (B={B_MAIN}, "
+          f"N=M={N_MAIN}, masked and unmasked)")
+    expect(max(e3, e2) <= TOL_DIST and worst_i == 0, "nn_dist disagrees")
+    r3, r2 = nn_checks(device)
+    errs["nn_dist"], errs["nn_min"] = max(e3, r3), max(e2, r2)
     torch.cuda.synchronize()
     return errs
 
@@ -1070,7 +1197,7 @@ EVAL_KERNELS = ("encoder_pool_f32", "nn_dist", "nn_min")
 WIDE_INSTANCES = ("encoder_pool_bf16_wide", "encoder_pool_int8_wide")
 # instances whose ptxas report must show no spills
 NO_SPILL = ("encoder_pool_bf16_kernel", "encoder_pool_int8_wide_kernel",
-            "encoder_pool_int8_kernel", "encoder_pool_kernel")
+            "encoder_pool_int8_kernel", "encoder_pool_kernel", "nn_kernel")
 SCAN_CENTRE = np.array([10.0, -2.0, 3.0])
 
 
@@ -1110,6 +1237,35 @@ def nn_bound(bsz, n, m, keep_idx):
     ops_s = bsz * n * m * 8 / PEAK_F32
     nbytes = (bsz * n * 3 + bsz * m * 3) * 4 + bsz * n * (8 if keep_idx else 4)
     return _bound(ops_s, nbytes)
+
+
+def nn_geometry():
+    """K3/K2's query points a thread (R) and distances a compare (C), as
+    csrc/nn_dist.cu fixes them."""
+    from gan_rl_3d_tpu_torch.ops import _cuda
+
+    src = (_cuda.CSRC / "nn_dist.cu").read_text()
+    return {k: int(re.search(rf"constexpr int k{k} = (\d+);", src).group(1))
+            for k in ("R", "C")}
+
+
+def nn_floor_ms(bsz, n, m, keep_idx):
+    """The design's own floor: the issue slots a pair needs for the bits
+    (FMUL, 2 FFMA, 2 FADD, FMNMX; K3's compare and select add 2 a sub-tile
+    of C), over 132 SMs x 128 lanes at 1.98 GHz, the clock behind
+    PEAK_F32."""
+    slots = 6 + (2 / nn_geometry()["C"] if keep_idx else 0)
+    return bsz * n * m * slots / (PEAK_F32 / 2) * 1e3
+
+
+def nn_registers(keep_idx):
+    """Registers a thread of K3's (keep_idx) or K2's unmasked instance,
+    from ptxas."""
+    from gan_rl_3d_tpu_torch.ops import _cuda
+
+    info = ptxas_report(_cuda.build_log("nn_dist"))[
+        f"nn_kernel<keep_idx={int(keep_idx)}, masked=0>"]
+    return int(info.split()[0])
 
 
 def gather_bound(bsz, n, m):
@@ -1205,13 +1361,19 @@ def phase_times(device, engine, engine_bf16, engine_q):
                 ("nn_min", lambda: chamfer.nearest_min_distances(pc, b),
                  lambda lo, hi: chamfer.nearest_min_distances_plain(
                      pc[lo:hi], b[lo:hi]), False)):
+            # the eager call, as every kernel's ms; beside it the device
+            # time from a CUDA graph, which leaves out the host's work
             ms = timed_ms(kernel, reps=reps)
+            device_ms = graph_ms(kernel, reps=reps, repeats=3)
             plain = timed_ms(chunked(plain_fn, bsz, chunk), reps=reps)
             lib = timed_ms(chunked(lambda lo, hi: torch.cdist(
                 pc[lo:hi], b[lo:hi]).min(-1), bsz, chunk), reps=reps)
             bound, by = nn_bound(bsz, N_MAIN, N_MAIN, keep)
-            rows[(name, bsz)] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
-                                     bound_by=by, library_ms=lib)
+            rows[(name, bsz)] = dict(
+                ms=ms, device_ms=device_ms, plain_ms=plain, bound_ms=bound,
+                bound_by=by, library_ms=lib,
+                floor_ms=nn_floor_ms(bsz, N_MAIN, N_MAIN, keep),
+                registers=nn_registers(keep), **nn_geometry())
         del pc, b
         torch.cuda.empty_cache()
     for (name, bsz), r in rows.items():
@@ -1219,7 +1381,12 @@ def phase_times(device, engine, engine_bf16, engine_q):
         extra = ("" if "quantize_f32_ms" not in r else
                  f"; row (de)quantization on the CUDA cores alone "
                  f"{r['quantize_f32_ms']:.4f} ms at the f32 rate")
-        if "tile" in r:
+        if "R" in r:
+            extra += (f"; {r['device_ms']:.4f} ms device time (CUDA graph); "
+                      f"the design's floor {r['floor_ms']:.4f} ms; "
+                      f"R={r['R']}, C={r['C']}, "
+                      f"{r['registers']} registers a thread")
+        elif "tile" in r:
             extra += (f"; {r['tile']}-point tile, {r['registers']} registers "
                       "a thread")
         elif "smem_bytes" in r:

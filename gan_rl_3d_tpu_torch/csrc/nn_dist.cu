@@ -9,20 +9,42 @@
 // Both compute d2 = (|a|^2 + |b|^2) + (-2a).b, keep the running minimum over
 // b, and return sqrt(max(d2_min, 1e-12)).
 //
-// What bounds it on an H100: operations. Every (a_i, b_j) pair costs about
-// 8 f32 flop (3 products, 4 adds, 1 compare) for no extra bytes; at B=64,
-// N=M=2048 that is 2.1 GFLOP per direction, 32 us at the 67 TFLOP/s f32
-// CUDA-core rate, against 2 MB of input (under 1 us at 3.35 TB/s).
+// What bounds it on an H100: operations. Every (a_i, b_j) pair costs one
+// FMUL, two FFMA and two FADD for d2, and one FMNMX for the minimum, for no
+// extra bytes: 6 issue slots a pair, 3.1 ms at B=4096, N=M=2048 on 132 SMs
+// x 128 lanes at 1.98 GHz; the input is 200 MB at that size (60 us at
+// 3.35 TB/s).
 //
-// What the design does about it: one thread per query point keeps -2a,
-// |a|^2 and its running best in registers; the block walks b in tiles of
-// kTileM points staged in shared memory as float4 (x, y, z, |b|^2 + penalty),
-// computed once per tile, so the inner loop is one broadcast 16-byte
-// shared load and 4 FMA-class instructions plus a compare per pair. The
-// distance matrix never exists. j is scanned in increasing order with a
-// strict <, which keeps the first index among equal minima, as jnp.argmin
-// and the TPU kernel's tile carry (chamfer.py:101-104) do. Any N and M
-// work: the ragged edge of a and b is masked here, not padded.
+// What the design does about it: register tiling on the CUDA cores. Each
+// thread holds kR query points (-2a, |a|^2 and the running best of each);
+// the block stages b in shared memory, kTileM points at a time, as float4
+// (x, y, z, |b|^2 + penalty) computed once per tile, so one broadcast
+// 16-byte shared load feeds kR query points. For each query point the kC
+// distances of a sub-tile are reduced by FMNMX and compared once with the
+// running best: K3 remembers only the sub-tile where its best last dropped
+// strictly, and after the scan recomputes that sub-tile's kC distances
+// (the same operations, so the same bits) to find the first j whose d2
+// equals the best. That index is the first among equal minima, as a scan of
+// j in increasing order with a strict < returns, like jnp.argmin and the TPU
+// kernel's tile carry (chamfer.py:94-104): before the sub-tile that holds
+// the first copy of the minimum every running best is strictly larger, and
+// after it none drops. The distance matrix never exists; the ragged edges of
+// a and b are masked, not padded (a tile's last sub-tile is filled with
+// |b|^2 = +inf, which never wins). On an H100, R = 4 and C = 1 were both
+// slower than R = C = 8 at B=4096 (PERF.md).
+//
+// The bits per pair are the TPU kernel's association, and those of the one-
+// point-per-thread kernel this replaces: |a|^2 and |b|^2 as (x*x + y*y) +
+// z*z, the penalty (1 - mask) * 1e30 added to |b|^2, cross = fma(nz, bz,
+// fma(ny, by, nx * bx)), d2 = (|a|^2 + |b|^2) + cross, every step rounded
+// on its own (the intrinsics keep nvcc from contracting or reordering).
+// Minima agree with that kernel's strict < scan: d2 is never -0 (+0 + -0 is
+// +0, and |a|^2 + |b|^2 is a sum of squares), a NaN never wins a strict <,
+// and fminf drops a NaN.
+//
+// Small batches leave the card short of warps (B=64, N=2048 is 128 blocks
+// of 4 warps); on an H100, splitting M over more blocks there saved 3.5-4.5
+// us of device time and nothing end to end, so each block scans all of M.
 
 #include <climits>
 
@@ -31,56 +53,144 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kTileM = 1024;
+constexpr int kR = 8;  // query points a thread holds
+constexpr int kC = 8;  // distances reduced before a compare
+constexpr int kBlockPoints = kThreads * kR;
+constexpr int kTileM = 256;
 constexpr float kBig = 1e30f;
+static_assert(kTileM % kC == 0, "a tile holds whole sub-tiles");
 
+__device__ __forceinline__ float pos_inf() {
+  return __int_as_float(0x7f800000);
+}
+
+__device__ __forceinline__ float norm2(float x, float y, float z) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
+                   __fmul_rn(z, z));
+}
+
+// b point j as (x, y, z, |b|^2 + penalty); the product (1 - mask) * 1e30
+// is rounded before the add, as the plain version does (for masks of 0 and
+// 1 it is exact, so a contracted FFMA gives the same bits).
+template <bool kMasked>
+__device__ __forceinline__ float4 b_point(const float* bc, const float* mc,
+                                          int j) {
+  const float* p = bc + static_cast<size_t>(j) * 3;
+  const float x = p[0], y = p[1], z = p[2];
+  float b2 = norm2(x, y, z);
+  if (kMasked) b2 = __fadd_rn(b2, __fmul_rn(__fsub_rn(1.f, mc[j]), kBig));
+  return make_float4(x, y, z, b2);
+}
+
+__device__ __forceinline__ float pair_d2(float nx, float ny, float nz,
+                                         float a2, float4 q) {
+  const float cross =
+      __fmaf_rn(nz, q.z, __fmaf_rn(ny, q.y, __fmul_rn(nx, q.x)));
+  return __fadd_rn(__fadd_rn(a2, q.w), cross);
+}
+
+struct Queries {
+  float nx[kR], ny[kR], nz[kR], a2[kR], best[kR];
+  int sub[kR];  // first j of the sub-tile where best last dropped, or -1
+};
+
+// kC b points of the staged tile against the thread's kR query points.
+template <bool kKeepIdx>
+__device__ __forceinline__ void scan_sub(const float4* t, int jsub,
+                                         Queries& q) {
+  float4 p[kC];
+#pragma unroll
+  for (int c = 0; c < kC; ++c) p[c] = t[c];
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    float mn = pair_d2(q.nx[r], q.ny[r], q.nz[r], q.a2[r], p[0]);
+#pragma unroll
+    for (int c = 1; c < kC; ++c) {
+      mn = fminf(mn, pair_d2(q.nx[r], q.ny[r], q.nz[r], q.a2[r], p[c]));
+    }
+    if (kKeepIdx && mn < q.best[r]) q.sub[r] = jsub;
+    q.best[r] = fminf(q.best[r], mn);
+  }
+}
+
+// grid.x = batch * q_blocks (the batch folded into grid.x: grid.y would cap
+// it at 65,535); block (cloud, query block qb) takes query points
+// [qb * kBlockPoints, +kBlockPoints) and all of b, in tiles of kTileM.
+// Asking for at least 4 blocks an SM changes only how ptxas schedules the
+// loop (5 blocks of 128 threads fit either way); on an H100 it ran K2
+// faster than no minimum or a minimum of 5.
 template <bool kKeepIdx, bool kMasked>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
 nn_kernel(const float* __restrict__ a, const float* __restrict__ b,
-          const float* __restrict__ b_mask, int n, int m, int blocks_per_cloud,
+          const float* __restrict__ b_mask, int n, int m, int q_blocks,
           float* __restrict__ dist, int* __restrict__ idx) {
   __shared__ float4 tile[kTileM];
-  // the batch is folded into grid.x (grid.y would cap it at 65,535)
-  const int cloud = blockIdx.x / blocks_per_cloud;
-  const int i = (blockIdx.x - cloud * blocks_per_cloud) * kThreads +
-                threadIdx.x;
-  const bool live = i < n;
-  const float* ai = a + (static_cast<size_t>(cloud) * n + (live ? i : 0)) * 3;
-  const float ax = ai[0], ay = ai[1], az = ai[2];
-  const float a2 = __fadd_rn(__fadd_rn(__fmul_rn(ax, ax), __fmul_rn(ay, ay)),
-                             __fmul_rn(az, az));
-  const float nx = -2.f * ax, ny = -2.f * ay, nz = -2.f * az;
+  const int cloud = blockIdx.x / q_blocks;
+  const int i0 =
+      (blockIdx.x - cloud * q_blocks) * kBlockPoints + threadIdx.x;
   const float* bc = b + static_cast<size_t>(cloud) * m * 3;
+  const float* mc = kMasked ? b_mask + static_cast<size_t>(cloud) * m
+                            : nullptr;
 
-  float best = __int_as_float(0x7f800000);  // +inf
-  int arg = 0;
+  Queries q;
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    // a query point past N computes on point N - 1 and writes nothing
+    const int i = min(i0 + r * kThreads, n - 1);
+    const float* ai = a + (static_cast<size_t>(cloud) * n + i) * 3;
+    const float ax = ai[0], ay = ai[1], az = ai[2];
+    q.a2[r] = norm2(ax, ay, az);
+    q.nx[r] = -2.f * ax;
+    q.ny[r] = -2.f * ay;
+    q.nz[r] = -2.f * az;
+    q.best[r] = pos_inf();
+    q.sub[r] = -1;
+  }
+
   for (int j0 = 0; j0 < m; j0 += kTileM) {
     const int count = min(kTileM, m - j0);
+    const int padded = (count + kC - 1) / kC * kC;
     __syncthreads();
-    for (int t = threadIdx.x; t < count; t += kThreads) {
-      const float* p = bc + static_cast<size_t>(j0 + t) * 3;
-      const float x = p[0], y = p[1], z = p[2];
-      float b2 = __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
-                           __fmul_rn(z, z));
-      if (kMasked) {
-        b2 += (1.f - b_mask[static_cast<size_t>(cloud) * m + j0 + t]) * kBig;
-      }
-      tile[t] = make_float4(x, y, z, b2);
+    for (int t = threadIdx.x; t < padded; t += kThreads) {
+      tile[t] = t < count ? b_point<kMasked>(bc, mc, j0 + t)
+                          : make_float4(0.f, 0.f, 0.f, pos_inf());
     }
     __syncthreads();
-    for (int t = 0; t < count; ++t) {
-      const float4 q = tile[t];
-      const float cross = fmaf(nz, q.z, fmaf(ny, q.y, nx * q.x));
-      const float d2 = (a2 + q.w) + cross;
-      if (d2 < best) {
-        best = d2;
-        if (kKeepIdx) arg = j0 + t;
+    if (count == kTileM) {
+      // a full tile: a trip count known at compile time, 4 sub-tiles an
+      // iteration
+#pragma unroll 4
+      for (int c0 = 0; c0 < kTileM; c0 += kC) {
+        scan_sub<kKeepIdx>(tile + c0, j0 + c0, q);
+      }
+    } else {
+#pragma unroll 1
+      for (int c0 = 0; c0 < padded; c0 += kC) {
+        scan_sub<kKeepIdx>(tile + c0, j0 + c0, q);
       }
     }
   }
-  if (live) {
+
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    // a best that never dropped below +inf keeps index 0, as the strict <
+    // scan keeps its initial 0
+    int arg = 0;
+    if (kKeepIdx && q.sub[r] >= 0) {
+      const int end = min(q.sub[r] + kC, m);
+      for (int j = q.sub[r]; j < end; ++j) {
+        const float d2 = pair_d2(q.nx[r], q.ny[r], q.nz[r], q.a2[r],
+                                 b_point<kMasked>(bc, mc, j));
+        if (d2 == q.best[r]) {
+          arg = j;
+          break;
+        }
+      }
+    }
+    const int i = i0 + r * kThreads;
+    if (i >= n) continue;
     const size_t o = static_cast<size_t>(cloud) * n + i;
-    dist[o] = sqrtf(fmaxf(best, 1e-12f));
+    dist[o] = sqrtf(fmaxf(q.best[r], 1e-12f));
     if (kKeepIdx) idx[o] = arg;
   }
 }
@@ -88,19 +198,19 @@ nn_kernel(const float* __restrict__ a, const float* __restrict__ b,
 template <bool kKeepIdx>
 int launch(const float* a, const float* b, const float* b_mask, int batch,
            int n, int m, float* dist, int* idx, void* stream) {
-  const int blocks_per_cloud = (n + kThreads - 1) / kThreads;
+  const int q_blocks = (n + kBlockPoints - 1) / kBlockPoints;
   if (batch < 1 || n < 1 || m < 1 ||
-      static_cast<long long>(blocks_per_cloud) * batch > INT_MAX) {
+      static_cast<long long>(q_blocks) * batch > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int grid = blocks_per_cloud * batch;
+  const int grid = q_blocks * batch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b_mask) {
     nn_kernel<kKeepIdx, true><<<grid, kThreads, 0, s>>>(
-        a, b, b_mask, n, m, blocks_per_cloud, dist, idx);
+        a, b, b_mask, n, m, q_blocks, dist, idx);
   } else {
     nn_kernel<kKeepIdx, false><<<grid, kThreads, 0, s>>>(
-        a, b, b_mask, n, m, blocks_per_cloud, dist, idx);
+        a, b, b_mask, n, m, q_blocks, dist, idx);
   }
   return static_cast<int>(cudaGetLastError());
 }

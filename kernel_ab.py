@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """A/B of two builds of the port's K1 (csrc/encoder_pool.cu), K6
-(csrc/encoder_pool_int8.cu) and K5 (csrc/nn_grad.cu) on one NVIDIA GPU:
-this checkout's kernels, through their wrappers (which pick each
-instance by the widths), against another checkout's, built from its
-sources.
+(csrc/encoder_pool_int8.cu), K3/K2 (csrc/nn_dist.cu) and K5
+(csrc/nn_grad.cu) on one NVIDIA GPU: this checkout's kernels, through
+their wrappers (which pick each instance by the widths), against another
+checkout's, built from its sources.
 
   python3 kernel_ab.py --other DIR [--kernels encoder_pool
-                                    encoder_pool_int8 nn_grad]
+                                    encoder_pool_int8 nn_dist nn_grad]
 
 DIR is the root of the other checkout (for example the parent commit
 unpacked with ``git archive``). The other build is called through its own
@@ -16,14 +16,17 @@ device index, and
 ``grl_nn_grad_b`` with or without a global scratch (which it then sizes
 by its ``grl_nn_grad_b_scratch``); K6 through ``grl_encoder_pool_int8``,
 the ``mma.sync`` build's on this checkout's packed bundle, or the
-``__dp4a`` build's on int32 words of four int8 weights.
+``__dp4a`` build's on int32 words of four int8 weights; K3 and K2
+through ``grl_nn_dist`` and ``grl_nn_min``.
 For each kernel it prints the count of output elements that differ
 between the two builds (K1 at B=64 and 4096, N=2048 with the flagship
 engine's f32 and bf16 weights, masked and unmasked, with the largest
 difference: this checkout's bf16 engine runs the tensor-core instance,
 which sums in another order than the other build's CUDA-core one; K6 at
 B=64 and 4096 with the
-flagship int8 engine, masked and unmasked; K5 on the Chamfer backward's
+flagship int8 engine, masked and unmasked; K3's dist and idx and K2's dist
+at B=64 masked and unmasked and B=4096, N=M=2048; K5 on the Chamfer
+backward's
 inputs at B=64 masked and unmasked, B=512, and the adversarial cases of
 chip_smoke.py), then times both in turns (other, this, this, other).
 Exits non-zero without a card.
@@ -275,13 +278,82 @@ def ab_scatter(lib, device):
                  chip_smoke.graph_ms)
 
 
+def other_nn(lib, a, b, bm, keep_idx):
+    """K3 (``keep_idx``: dist and idx) or K2 (dist, None) of another build
+    through its C entry."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    bsz, n, _ = a.shape
+    m = b.shape[1]
+    dist = torch.empty((bsz, n), device=a.device)
+    idx = None
+    if keep_idx:
+        idx = torch.empty((bsz, n), dtype=torch.int32, device=a.device)
+        lib.grl_nn_dist.argtypes = [p, p, p, i, i, i, p, p, p]
+        lib.grl_nn_dist.restype = i
+        err = lib.grl_nn_dist(a.data_ptr(), b.data_ptr(),
+                              None if bm is None else bm.data_ptr(), bsz, n,
+                              m, dist.data_ptr(), idx.data_ptr(),
+                              _cuda.stream_of(a))
+    else:
+        lib.grl_nn_min.argtypes = [p, p, i, i, i, p, p]
+        lib.grl_nn_min.restype = i
+        err = lib.grl_nn_min(a.data_ptr(), b.data_ptr(), bsz, n, m,
+                             dist.data_ptr(), _cuda.stream_of(a))
+    if err:
+        raise RuntimeError(f"other nn_dist: CUDA error {err}")
+    return dist, idx
+
+
+def ab_nn_dist(lib, device):
+    """K3 and K2 of the two builds at B=64 masked and unmasked and B=4096
+    unmasked, N=M=2048: differing elements of K3's dist and idx and of
+    K2's dist (expected 0: the same arithmetic a pair, the same first
+    index), then the unmasked times in turns, of the eager call and as
+    device time (CUDA graph)."""
+    from gan_rl_3d_tpu_torch.ops import chamfer
+
+    def this(a, b, bm, keep_idx):
+        # K3's wrapper without autograd, as the other build is called
+        if keep_idx:
+            return chamfer._nearest_forward(a, b, bm)
+        return chamfer.nearest_min_distances(a, b), None
+
+    for bsz, masked in ((chip_smoke.B_MAIN, True), (chip_smoke.B_MAIN, False),
+                        (chip_smoke.B_BIG, False)):
+        a, _ = chip_smoke.make_clouds(bsz, chip_smoke.N_MAIN, 80, device)
+        b, bm = chip_smoke.make_clouds(bsz, chip_smoke.N_MAIN, 81, device)
+        bm = bm if masked else None
+        what = f"B={bsz}{' masked' if masked else ''}"
+        reps = 20 if bsz == chip_smoke.B_MAIN else 2
+        for keep_idx, name in ((True, "nn_dist"), (False, "nn_min")):
+            if masked and not keep_idx:
+                continue
+            d, i = this(a, b, bm, keep_idx)
+            od, oi = other_nn(lib, a, b, bm, keep_idx)
+            counts = f"dist {differ(d, od)}"
+            if keep_idx:
+                counts += f", idx {int((i != oi).sum())}"
+            print(f"{name} {what}: {counts} of {d.numel()} elements differ "
+                  "from the other build")
+            if masked:
+                continue
+            for timer, how in ((chip_smoke.timed_ms, "eager call"),
+                               (chip_smoke.graph_ms, "device, CUDA graph")):
+                in_turns(f"{name} {what} ({how})",
+                         lambda: other_nn(lib, a, b, None, keep_idx),
+                         lambda: this(a, b, None, keep_idx),
+                         lambda fn: timer(fn, reps=reps, repeats=3))
+        del a, b, bm
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--other", type=Path, required=True)
     parser.add_argument("--kernels", nargs="+",
                         default=["encoder_pool", "nn_grad"],
                         choices=["encoder_pool", "encoder_pool_int8",
-                                 "nn_grad"])
+                                 "nn_dist", "nn_grad"])
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_ab: needs a CUDA device")
@@ -295,6 +367,7 @@ def main() -> None:
             lib = build_other(args.other, name, Path(tmp))
             {"encoder_pool": ab_encoder_pool,
              "encoder_pool_int8": ab_encoder_pool_int8,
+             "nn_dist": ab_nn_dist,
              "nn_grad": ab_scatter}[name](lib, device)
     torch.cuda.synchronize()
 

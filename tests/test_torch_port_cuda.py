@@ -236,10 +236,11 @@ def test_launch_geometry_is_kept_across_shared_memory_sizes(cuda):
     ("encoder_pool_bf16", "encoder_pool_bf16_kernel"),
     ("encoder_pool_int8_wide", "encoder_pool_int8_wide_kernel"),
     ("encoder_pool_int8", "encoder_pool_int8_kernel"),
-    ("encoder_pool", "encoder_pool_kernel")])
+    ("encoder_pool", "encoder_pool_kernel"),
+    ("nn_dist", "nn_kernel")])
 def test_instances_do_not_spill(cuda, source, kernel):
-    """ptxas reports no spill for any instance of K1 or K6, and at most
-    255 registers a thread."""
+    """ptxas reports no spill for any instance of K1, K6 or K3/K2, and at
+    most 255 registers a thread."""
     report = chip_smoke.ptxas_report(_cuda.build_log(source))
     found = {k: v for k, v in report.items() if k.startswith(kernel + "<")}
     assert found, report
@@ -389,6 +390,32 @@ def test_nn_kernels_match_plain(cuda, n, m, masked):
     dm = chamfer.nearest_min_distances(a, b)
     assert float((dm - chamfer.nearest_min_distances_plain(a, b))
                  .abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_nn_min_equals_nn_dist_bit_for_bit(cuda):
+    """K2's distances equal K3's unmasked ones bit for bit at B=64,
+    N=M=2048 and at chip_smoke.NN_RAGGED's shapes."""
+    chip_smoke.nn_k2_equals_k3(cuda)
+
+
+@pytest.mark.cuda
+def test_nn_dist_mask_of_ones_equals_no_mask(cuda):
+    chip_smoke.nn_ones_mask(cuda)
+
+
+@pytest.mark.cuda
+def test_nn_dist_duplicates_give_the_first_copy(cuda):
+    """Exact duplicates in b within a sub-tile and across the sub-tile and
+    tile boundaries (chip_smoke.NN_TIES) give the first copy."""
+    chip_smoke.nn_duplicate_ties(cuda)
+
+
+@pytest.mark.cuda
+def test_nn_kernels_on_ragged_shapes(cuda):
+    """(N, M) = (1, 1), (7, 3000), (1001, 777), (2048, 2048), B=3, masked
+    with a fully masked cloud and unmasked, against the plain versions."""
+    assert max(chip_smoke.nn_ragged(cuda)) <= chip_smoke.TOL_DIST
 
 
 @pytest.mark.cuda
