@@ -42,7 +42,20 @@ Phases, each failing the run if it fails:
      evaluate --checkpoint autoencoder_best --export-engine``, and
      ``complete_clouds --checkpoint`` and ``--engine`` (the exported
      engine) on a few files (K3 and K2 must launch);
-  5. times: each kernel (every instance of K1 and K6 at the flagship
+  5. phases 2-4 of the curriculum at full width from phase 1's
+     checkpoint, through the trainer the CLI calls (``--phase lgan
+     --resume autoencoder_best``, ``--phase rl_agent``): GFV extraction
+     over the train split, 1 epoch of the latent WGAN-GP at the recipe
+     (batch 16, 3 D steps a G step, z 8), 6 RL iterations at the recipe
+     (64 environments, 1-step episodes, 64 TD3 updates an iteration from
+     256 transitions on, so 192 updates; the critic warmup cut to 96 and
+     the ramp to 24 so the actor updates), finite losses and rewards, the
+     actor changed, K3 launched in the reward, ``rl_agent_final``
+     reloaded bit for bit into a fresh trainer and ``complete`` run on it;
+     then one ``lgan_combined_step``, one ``agent_update`` and one
+     ``rl_step`` (64 updates) on the card against the same on CPU copies,
+     with the same draws;
+  6. times: each kernel (every instance of K1 and K6 at the flagship
      widths), its plain version, the least time the card could take
      (bound) and a library yardstick (registers a thread and shared memory
      beside their times; K3 and K2 also as CUDA-graph device time, with
@@ -51,7 +64,8 @@ Phases, each failing the run if it fails:
      ``complete_fast`` call at B=64 and B=4096 (f32, bf16 and int8 engines), and per
      ``ae_train_step`` at B=64 in f32 and bf16_selective, with a
      torch.profiler trace of the step (device busy time, idle share,
-     launches, top kernels).
+     launches, top kernels); the same for ``lgan_combined_step``,
+     ``agent_update`` and ``rl_step``, with K3's share of the RL step.
 
 The next-to-last line is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}. Any failure raises and exits
@@ -124,6 +138,27 @@ NN_TIES = ((5, 11), (250, 260), (252, 253), (255, 256), (678, 690),
            (1020, 1030), (1000, 1500), (0, 2047))
 TRACE_STEPS = 5     # ae_train_steps traced by torch.profiler
 TRACE_TOP = 12      # kernels listed by their device time
+# phases 2-4, card against CPU with the same draws and the same start
+# (cuBLAS and the CPU's BLAS sum in other orders, as for the AE step):
+# losses and rewards relative to the CPU's; each network's update (new
+# parameters - start) in the 2-norm relative to the CPU's update, so that
+# a step that skipped the optimizer or took the wrong lr reads about 1;
+# state leaves (BN variances, spectral-norm vectors), buffer rows and the
+# OU state relative to their own largest element. Adam divides each
+# gradient element by its own RMS, and the biases ahead of a training
+# BatchNorm have a true gradient of 0 (the BN subtracts them again), so
+# their last-bit gradients become steps of up to lr either way: those
+# biases and the BN running means that take them in (adam_noise) are
+# held to 2 lr an update, absolute (tests/test_torch_port_rl.py and
+# tests/test_torch_port_lgan.py measure this against JAX).
+TOL_RL_LOSS = 1e-4
+TOL_RL_UPDATE = 1e-2
+TOL_RL_PARAM = 2e-3
+RL_ITERS = 6        # iterations of train_rl_agent: 256 transitions at the
+                    # 4th, so iterations 4-6 run 64 TD3 updates each
+RL_WARMUP, RL_RAMP = 96, 24  # the recipe's 2000 / 1500, cut to the run
+RL_PREFILL = 256    # buffer rows before the rl_step checked and timed
+TRACE_RL = 2        # rl_steps traced (64 updates each)
 
 
 # ---------------------------------------------------------------------------
@@ -296,7 +331,6 @@ def ptxas_report(log: str) -> dict:
          "encoder_pool_int8_wide_kernel<masked={}>"),
         (r"scatter_kernelILb(\d)E", "scatter_kernel<shared={}>"),
         (r"nn_kernelILb(\d)ELb(\d)E", "nn_kernel<keep_idx={}, masked={}>"),
-        (r"nn_decodeILb(\d)E", "nn_decode<keep_idx={}>"),
         (r"\d+(pool_init|pool_decode|[a-z_]+_kernel)", "{}"))
     out, fn = {}, None
     for line in log.splitlines():
@@ -1167,6 +1201,391 @@ def step_check(device, ae_model):
            "the f32 step on the card disagrees with the CPU")
 
 
+def _rl_config(cfg):
+    """The shipped recipe's phases 3-4 cut to the run: 1 LGAN epoch,
+    RL_ITERS RL iterations, the critic warmup and actor ramp cut so the
+    actor updates within them."""
+    import dataclasses
+
+    t = cfg.training
+    return dataclasses.replace(cfg, training=dataclasses.replace(
+        t, lgan=dataclasses.replace(t.lgan, epochs=1),
+        rl_agent=dataclasses.replace(
+            t.rl_agent, episodes=RL_ITERS * t.rl_agent.envs_per_step,
+            actor_warmup=RL_WARMUP, actor_lr_ramp=RL_RAMP)))
+
+
+def phase_rl(device, cfg):
+    """Phases 2-4 of the curriculum at full width, as ``--phase lgan
+    --resume autoencoder_best`` and ``--phase rl_agent`` run them, counted
+    launch by launch; then ``rl_agent_final`` into a fresh trainer."""
+    from gan_rl_3d_tpu_torch.convert import agent_to_numpy
+    from gan_rl_3d_tpu_torch.models import rl_gan_net as net
+    from gan_rl_3d_tpu_torch.ops import _cuda
+    from gan_rl_3d_tpu_torch.train.trainer import RLGANNetTrainer
+
+    cfg = _rl_config(cfg)
+    trainer = RLGANNetTrainer(cfg, device=device)
+    trainer.load_checkpoint("autoencoder_best")
+    ckpt = Path(cfg.training.checkpoint_dir)
+    torch.cuda.synchronize()
+    _cuda.launch_counts.clear()
+    t0 = time.perf_counter()
+    gfvs = trainer.generate_gfvs()
+    n_train = len(trainer.train_loader.dataset)
+    latent = cfg.model.lgan.latent_dim
+    expect(all(v.shape == (n_train, latent) and np.isfinite(v).all()
+               for v in gfvs.values()), "GFV extraction: wrong shapes or "
+           "non-finite values")
+    print(f"generate_gfvs: {n_train} (clean, noisy) pairs of {latent} in "
+          f"{time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    trainer.train_latent_gan()
+    (g_loss, d_loss), = trainer.lgan_losses
+    print(f"train_latent_gan: 1 epoch ({n_train // cfg.training.lgan.batch_size}"
+          f" steps of {cfg.training.lgan.d_steps} D + 1 G) in "
+          f"{time.perf_counter() - t0:.2f}s, G {g_loss:.6f} D {d_loss:.6f}")
+    expect(np.isfinite([g_loss, d_loss]).all(), "non-finite LGAN loss")
+    expect((ckpt / "lgan_best").exists(), "lgan_best was not written")
+    actor = [v.detach().clone() for v in
+             _leaves(trainer.model["agent"]["actor"]["params"])]
+    t0 = time.perf_counter()
+    trainer.train_rl_agent()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(_cuda.launch_counts)
+    hist = trainer.rl_history
+    rewards = [h["reward"] for h in hist]
+    losses = [(float(h["critic_loss"]), float(h["actor_loss"]))
+              for h in hist]
+    moved = max(float((a.detach() - b).abs().max()) for a, b in zip(
+        _leaves(trainer.model["agent"]["actor"]["params"]), actor))
+    print(f"train_rl_agent: {len(hist)} iterations, "
+          f"{trainer.model['agent']['step']} TD3 updates in {dt:.2f}s; "
+          f"rewards {[round(r, 4) for r in rewards]}, (critic, actor) "
+          f"losses {[(round(c, 4), round(a, 4)) for c, a in losses]}, "
+          f"greedy evals {[(e, round(r, 4), round(c, 5)) for e, r, c in trainer.rl_evals]}; "
+          f"the actor moved {moved:.3e}")
+    print(f"rl-path launches (phases 2-4): {counts}")
+    expect(len(hist) == RL_ITERS and np.isfinite(rewards).all()
+           and np.isfinite(losses).all(), "non-finite RL reward or loss")
+    updates = cfg.training.rl_agent.updates_per_step
+    expect(trainer.model["agent"]["step"] == (RL_ITERS - 3) * updates,
+           "wrong number of TD3 updates")
+    expect(moved > 0, "the actor did not change")
+    for name in RL_KERNELS:
+        expect(counts.get(name, 0) > 0, f"{name} never launched on the RL "
+               "path")
+    fresh = RLGANNetTrainer(cfg, device=device)
+    fresh.load_checkpoint("rl_agent_final")
+    for a, b in zip(_leaves(agent_to_numpy(trainer.model["agent"])),
+                    _leaves(agent_to_numpy(fresh.model["agent"]))):
+        expect(np.array_equal(a, b), "rl_agent_final reloads differently")
+    pc, mask = make_clouds(8, N_MAIN, seed=30, device=device)
+    out = net.complete(fresh.model, pc, mask, cfg=fresh.td3)
+    expect(out["hybrid_output"].shape == (8, N_MAIN, 3) and all(
+        bool(torch.isfinite(v).all()) for v in out.values()),
+        "complete on rl_agent_final: wrong shape or non-finite")
+    print("rl_agent_final reloaded bit for bit into a fresh trainer; "
+          "complete ran on it")
+    return counts, trainer
+
+
+def rl_checks(device, trainer):
+    """One lgan_combined_step, one agent_update and one rl_step (64
+    updates) at full width on the card and on CPU copies, from the same
+    weights, optimizer state, buffer and draws."""
+    from gan_rl_3d_tpu_torch.models import rl_agent as rl
+    from gan_rl_3d_tpu_torch.train import replay_buffer as rb
+    from gan_rl_3d_tpu_torch.train import steps
+
+    cpu = torch.device("cpu")
+    cfg, td3 = trainer.config, trainer.td3
+    lc = cfg.training.lgan
+    rng = np.random.RandomState(40)
+    real = [torch.from_numpy(trainer.gfvs["clean"][rng.randint(
+        0, len(trainer.gfvs["clean"]), (lc.d_steps, lc.batch_size))])
+        for _ in range(2)]
+    warm = lgan_warm(trainer.model["lgan"], cfg, real[0], seed=41)
+    draws = lgan_draws(cfg, seed=42)
+    start = {k: {part: warm[0][part][k] for part in ("params", "state")}
+             for k in ("generator", "discriminator")}
+    (sm, card), (ref_m, ref) = (lgan_step_on(dev, warm, cfg, real[1], draws)
+                                for dev in (device, cpu))
+    le = {k: _rel(sm[k], ref_m[k]) for k in ("d_loss", "g_loss")}
+    errs = {k: network_errs(card[k], ref[k], start[k]) for k in card}
+    tol_noise = 2 * lc.generator_lr * lc.d_steps
+    print(f"lgan_combined_step B={lc.batch_size} d_steps={lc.d_steps}: card "
+          f"vs CPU, losses " + ", ".join(
+              f"{k} {float(sm[k]):.6f} / {float(ref_m[k]):.6f} ({e:.3e})"
+              for k, e in le.items()) + f" (tol {TOL_RL_LOSS:g} of max(1, "
+          f"|loss|)); {_errs_text(errs)} ({_TOL_TEXT}, "
+          f"Adam-noise leaves {tol_noise:g} absolute)")
+    expect(max(le.values()) <= TOL_RL_LOSS
+           and _errs_ok(errs.values(), tol_noise),
+           "lgan_combined_step: the card disagrees with the CPU")
+    # the update check's power: the same step on the card with lr 0
+    _, frozen = lgan_step_on(device, warm, cfg, real[1], draws, lr_scale=0.0)
+    power = {k: network_errs(frozen[k], ref[k], start[k])[0] for k in card}
+    print("lgan_combined_step with lr 0 on the card: update error "
+          + ", ".join(f"{k} {e:.3e}" for k, e in power.items())
+          + f" (must exceed {TOL_RL_UPDATE:g})")
+    expect(min(power.values()) > TOL_RL_UPDATE,
+           "lgan_combined_step: the update check passes a step with lr 0")
+
+    batch = random_transitions(td3.batch_size, td3, 42, cpu)
+    noise = torch.randn((td3.batch_size, td3.action_dim),
+                        generator=torch.Generator().manual_seed(43))
+    frozen_cfg = td3._replace(actor_lr=0.0, critic_lr=0.0)
+    agents, ms = {}, {}
+    for key, dev, c in ((device.type, device, td3), ("cpu", cpu, td3),
+                        ("frozen", device, frozen_cfg)):
+        agents[key] = _agent_copy(trainer.model["agent"], dev, c)
+        _, ms[key] = rl.agent_update(
+            agents[key], rl.TransitionBatch(*(v.to(dev) for v in batch)),
+            noise.to(dev), c)
+    le = max(_rel(ms[device.type][k], ms["cpu"][k])
+             for k in ("critic_loss", "actor_loss"))
+    print(f"agent_update B={td3.batch_size} (step {agents['cpu']['step']}): "
+          f"losses card vs CPU {le:.3e} of max(1, |loss|) (tol "
+          f"{TOL_RL_LOSS:g})")
+    expect(le <= TOL_RL_LOSS, "agent_update: losses differ")
+    start = trainer.model["agent"]
+    _check_agents("agent_update", agents[device.type], agents["cpu"], start,
+                  1, td3.critic_lr)
+    power = {n: network_errs(agents["frozen"][n], agents["cpu"][n],
+                             start[n])[0] for n in rl.NETWORKS}
+    print("agent_update with lr 0 on the card: update error " + ", ".join(
+        f"{n} {e:.3e}" for n, e in power.items())
+        + f" (the critics' must exceed {TOL_RL_UPDATE:g})")
+    expect(min(power["critic1"], power["critic2"]) > TOL_RL_UPDATE,
+           "agent_update: the update check passes a step with lr 0")
+
+    rc = cfg.training.rl_agent
+    envs = rc.envs_per_step
+    pc, _ = make_clouds(envs, N_MAIN, seed=44, device=cpu)
+    pre = random_transitions(RL_PREFILL, td3, 45, cpu)
+    rl_draws = steps.draw_rl_step(
+        torch.Generator().manual_seed(46), envs, N_MAIN, cfg=td3,
+        buffer_size=RL_PREFILL + envs, updates_per_step=rc.updates_per_step,
+        spec=trainer.preproc)
+    res = {}
+    for dev in (device, cpu):
+        model = {**{k: _on(trainer.model[k], dev) for k in ("ae", "lgan")},
+                 "agent": _agent_copy(trainer.model["agent"], dev, td3)}
+        buf = rb.ReplayBuffer(cfg.model.rl_agent.buffer_size,
+                              td3.state_dim, td3.action_dim, dev)
+        buf.add_batch(rl.TransitionBatch(*(v.to(dev) for v in pre)))
+        t0 = time.perf_counter()
+        model, buf, ou, sm = steps.rl_step(
+            model, buf, rl.ou_init(td3, (envs,), dev),
+            {"complete_pc": pc.to(dev), "pad": torch.zeros(envs, device=dev)},
+            _on(rl_draws, dev), cfg=td3, w_chamfer=cfg.loss.w_chamfer,
+            w_gfv=cfg.loss.w_gfv, w_discriminator=cfg.loss.w_discriminator,
+            start_training_size=rc.start_training_steps,
+            updates_per_step=rc.updates_per_step, spec=trainer.preproc)
+        rows = {name: getattr(buf, name)[:RL_PREFILL + envs]
+                for name in rb.FIELDS}
+        res[dev.type] = (model, rows, ou, sm, time.perf_counter() - t0)
+    (model, rows, ou, sm, dt), (r_model, r_rows, r_ou, r_sm, r_dt) = (
+        res[device.type], res["cpu"])
+    le = max(_rel(sm[k], r_sm[k]) for k in ("reward", "critic_loss",
+                                             "actor_loss"))
+    be = max(scaled_err(rows[k].cpu(), r_rows[k]) for k in rows)
+    oe = scaled_err(ou.cpu(), r_ou)
+    print(f"rl_step {envs} envs, {rc.updates_per_step} updates (card "
+          f"{dt:.2f}s, CPU {r_dt:.2f}s): reward {float(sm['reward']):.5f} "
+          f"card, {float(r_sm['reward']):.5f} CPU; reward and losses "
+          f"{le:.3e} of max(1, |value|) (tol {TOL_RL_LOSS:g}), buffer rows "
+          f"{be:.3e} "
+          f"and OU state {oe:.3e} scaled (tol {TOL_RL_PARAM:g})")
+    expect(le <= TOL_RL_LOSS and be <= TOL_RL_PARAM and oe <= TOL_RL_PARAM,
+           "rl_step: the card disagrees with the CPU")
+    _check_agents("rl_step", model["agent"], r_model["agent"],
+                  trainer.model["agent"], rc.updates_per_step, td3.critic_lr)
+
+
+def lgan_draws(cfg, seed):
+    """The draws of one ``lgan_combined_step`` at ``cfg``'s widths."""
+    from gan_rl_3d_tpu_torch.train import steps
+    lc, m = cfg.training.lgan, cfg.model.lgan
+    return steps.draw_lgan_combined(torch.Generator().manual_seed(seed),
+                                     lc.batch_size, m.z_dim,
+                                     m.discriminator_dims, lc.d_steps)
+
+
+def lgan_warm(lgan, cfg, real, seed):
+    """The LGAN ``{"params", "state"}`` on the CPU after one
+    ``lgan_combined_step`` on ``real`` (d_steps, B, latent), and the G and
+    D Adam states it built. A fresh Adam's first step moves each element
+    by lr times the sign of its gradient, so an element whose gradient is
+    at the rounding level flips between two devices; from moments one
+    step old the update is a smooth function of the gradient
+    (adam_probe.py measures both)."""
+    from gan_rl_3d_tpu_torch.train import steps
+    lc = cfg.training.lgan
+    params = _on(lgan["params"], torch.device("cpu"), grad=True)
+    state = _on(lgan["state"], torch.device("cpu"))
+    g_opt = steps.make_gan_optimizer(params["generator"], lc.generator_lr, lc)
+    d_opt = steps.make_gan_optimizer(params["discriminator"],
+                                     lc.discriminator_lr, lc)
+    state, _ = steps.lgan_combined_step(params, state, d_opt, g_opt, real,
+                                        lgan_draws(cfg, seed),
+                                        lambda_gp=lc.lambda_gp)
+    return ({"params": params, "state": state}, g_opt.state_dict(),
+            d_opt.state_dict())
+
+
+def lgan_step_on(dev, warm, cfg, real, draws, lr_scale=1.0):
+    """One ``lgan_combined_step`` on ``dev`` from ``lgan_warm``'s
+    weights, state and Adam states, with lr times ``lr_scale``: (metrics,
+    {"generator", "discriminator"} each {"params", "state"})."""
+    import copy
+
+    from gan_rl_3d_tpu_torch.train import steps
+    lc = cfg.training.lgan
+    lgan, g_sd, d_sd = warm
+    params = _on(lgan["params"], dev, grad=True)
+    state = _on(lgan["state"], dev)
+    opts = {}
+    for k, sd, lr in (("generator", g_sd, lc.generator_lr),
+                      ("discriminator", d_sd, lc.discriminator_lr)):
+        opts[k] = steps.make_gan_optimizer(params[k], lr, lc)
+        # a copy: on the CPU load_state_dict would share the step counts
+        opts[k].load_state_dict(copy.deepcopy(sd))
+        for group in opts[k].param_groups:
+            group["lr"] = lr * lr_scale
+    state, sm = steps.lgan_combined_step(
+        params, state, opts["discriminator"], opts["generator"], real.to(dev),
+        _on(draws, dev), lambda_gp=lc.lambda_gp)
+    return sm, {k: {"params": params[k], "state": state[k]}
+                for k in ("generator", "discriminator")}
+
+
+def _named_leaves(tree, path=()):
+    """(path, tensor) of every leaf, dict keys in sorted order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, path + (i,))
+    elif tree is not None:
+        yield path, tree
+
+
+def adam_noise(path, tree) -> bool:
+    """Whether the leaf at ``path`` of ``tree`` (a network's params, state
+    or Adam moments) is one Adam makes noise of: the bias of a dense layer
+    that feeds a training BatchNorm (a ``bn_mlp`` block with a "bn" entry;
+    the critic's state_fc, comb_fc1, comb_fc2) and the BN running means
+    that take it in. tests/test_torch_port_rl.py and
+    tests/test_torch_port_lgan.py hold the same leaves loosely."""
+    if path[-1] == "mean":
+        return True
+    if path[-1] != "b":
+        return False
+    if path[-2] in ("state_fc", "comb_fc1", "comb_fc2"):
+        return True
+    node = tree
+    for k in path[:-2]:
+        node = node[k]
+    return path[-2] == "dense" and "bn" in node
+
+
+def network_errs(card: dict, cpu: dict, start: dict) -> tuple:
+    """A network {"params", "state"} after a step on the card against its
+    CPU copy after the same step from ``start``: (the update's error,
+    |(card - start) - (cpu - start)| / |cpu - start| in the 2-norm over
+    the parameters that are not Adam noise; the worst state leaf's error
+    relative to its own largest element, and its path; the Adam-noise
+    leaves' largest absolute error). A network that the CPU left where it
+    was reads 0 when the card did too."""
+    diff = moved = state_err = noise = 0.0
+    worst = None
+    for part in ("params", "state"):
+        for (path, a), (_, b), (_, s0) in zip(_named_leaves(card[part]),
+                                              _named_leaves(cpu[part]),
+                                              _named_leaves(start[part])):
+            a, b, s0 = (v.detach().cpu().double() for v in (a, b, s0))
+            if adam_noise(path, card[part]):
+                noise = max(noise, float((a - b).abs().max()))
+            elif part == "params":
+                diff += float((a - b).square().sum())
+                moved += float((b - s0).square().sum())
+            else:
+                e = float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                     1e-30)
+                if e >= state_err:
+                    state_err, worst = e, path
+    update = ((diff / moved) ** 0.5 if moved
+              else 0.0 if diff == 0 else float("inf"))
+    return update, state_err, worst, noise
+
+
+_TOL_TEXT = (f"update tol {TOL_RL_UPDATE:g} of the CPU's, state tol "
+             f"{TOL_RL_PARAM:g} of each leaf's largest element")
+
+
+def _errs_text(errs: dict) -> str:
+    return ", ".join(f"{k} update {u:.3e}, state {s:.3e} "
+                     f"{'.'.join(map(str, p or ()))}, noise {z:.3e}"
+                     for k, (u, s, p, z) in errs.items())
+
+
+def _errs_ok(errs, tol_noise) -> bool:
+    return all(u <= TOL_RL_UPDATE and s <= TOL_RL_PARAM and z <= tol_noise
+               for u, s, _, z in errs)
+
+
+def _on(tree, dev, grad=False):
+    """A copy of a tree of tensors (or None leaves) on ``dev``; with
+    ``grad`` its leaves take a gradient."""
+    from gan_rl_3d_tpu_torch.utils.tree import tree_map
+    return tree_map(lambda v: v.detach().to(dev).clone().requires_grad_(grad),
+                    tree)
+
+
+def _agent_copy(agent, dev, td3):
+    from gan_rl_3d_tpu_torch.convert import agent_from_numpy, agent_to_numpy
+    return agent_from_numpy(agent_to_numpy(agent), td3, device=dev)
+
+
+def _check_agents(what, card, cpu, start, n_updates, lr):
+    """Every network and target of an agent after a step on the card
+    against its CPU copy after the same step from the agent ``start``."""
+    from gan_rl_3d_tpu_torch.models import rl_agent as rl
+    tol_noise = 2 * lr * n_updates
+    errs = {name: network_errs(card[name], cpu[name], start[name])
+            for name in rl.NETWORKS + tuple(n + "_target"
+                                            for n in rl.NETWORKS)}
+    print(f"{what}: card vs CPU, per network {_errs_text(errs)} "
+          f"({_TOL_TEXT}, Adam-noise leaves {tol_noise:g} absolute)")
+    expect(_errs_ok(errs.values(), tol_noise),
+           f"{what}: the card disagrees with the CPU")
+    expect(card["step"] == cpu["step"], f"{what}: step differs")
+
+
+def _rel(a, b) -> float:
+    """|a - b| / max(1, |b|) of two scalars: relative, absolute for O(1)
+    values (a loss near 0 is a difference of terms of order 1)."""
+    a, b = float(a), float(b)
+    return abs(a - b) / max(abs(b), 1.0)
+
+
+def random_transitions(n, td3, seed, device):
+    """n transitions of the RL phase's shapes: GFV-scale states, actions in
+    [-1, 1], rewards about the reward's scale, done."""
+    from gan_rl_3d_tpu_torch.models import rl_agent as rl
+    g = torch.Generator().manual_seed(seed)
+    batch = rl.TransitionBatch(
+        states=0.5 * torch.randn(n, td3.state_dim, generator=g),
+        actions=torch.tanh(torch.randn(n, td3.action_dim, generator=g)),
+        rewards=-20.0 + torch.randn(n, 1, generator=g),
+        next_states=0.5 * torch.randn(n, td3.state_dim, generator=g),
+        dones=torch.ones(n, 1))
+    return rl.TransitionBatch(*(v.to(device) for v in batch))
+
 KERNELS = {
     "encoder_pool_f32": ("gan_rl_3d_tpu_torch/csrc/encoder_pool.cu",
                          "gan_rl_3d_tpu/ops/encoder_kernel.py:151"),
@@ -1192,6 +1611,7 @@ SERVING_KERNELS = ("encoder_pool_f32", "encoder_pool_bf16",
                    "encoder_pool_int8", "nn_dist", "nn_min")
 TRAINING_KERNELS = ("nn_dist", "nn_gather", "nn_scatter")
 EVAL_KERNELS = ("encoder_pool_f32", "nn_dist", "nn_min")
+RL_KERNELS = ("nn_dist",)
 # instances for widths the flagship does not have: run by the checks of
 # phase 2 (and timed at the flagship widths), on no main path
 WIDE_INSTANCES = ("encoder_pool_bf16_wide", "encoder_pool_int8_wide")
@@ -1527,6 +1947,116 @@ def phase_train_times(device):
     return rows
 
 
+def _trace(fn, calls: int, ms: float, what: str, top=TRACE_TOP) -> dict:
+    """torch.profiler trace of ``calls`` calls of ``fn``: device busy ms a
+    call, idle share of the ``ms`` call, launches a call, the kernels with
+    the most device time, and K3's device time a call."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = device_kernel_times(prof)
+    busy = sum(us for _, _, us in events) / 1e3 / calls
+    launches = sum(n for _, n, _ in events) / calls
+    k3 = sum(us for name, _, us in events
+             if "nn_kernel" in name) / 1e3 / calls
+    expect(busy > 0, f"{what}: no device time in the trace")
+    print(f"{what} trace of {calls} calls: device busy {busy:.3f} ms a "
+          f"call, idle share {1 - busy / ms:.3f} of the {ms:.3f} ms call, "
+          f"{launches:.0f} device launches a call, K3 {k3:.4f} ms a call "
+          f"({k3 / busy:.4f} of device busy); most device time:")
+    for name, n, us in sorted(events, key=lambda e: -e[2])[:top]:
+        print(f"  {us / 1e3 / calls:9.4f} ms  x{n / calls:6.0f}  {name[:110]}")
+    return {"ms": ms, "device_busy_ms": busy, "idle_share": 1 - busy / ms,
+            "launches": launches, "k3_ms": k3}
+
+
+def phase_rl_times(device, trainer):
+    """ms per ``lgan_combined_step`` (the recipe's batch 16, 3 D steps),
+    per ``agent_update`` (batch 64) and per ``rl_step`` (64 environments,
+    64 updates), from the RL phase's weights and optimizer state, by CUDA
+    events. Returns the cases and their times for ``trace_rl_steps``,
+    which runs after every time of the script is taken: a trace slows
+    the timings after it in the same process (the f32 AE step read 38.8
+    ms before the traces and 70.0 after, H100 80GB HBM3, 700 W)."""
+    from gan_rl_3d_tpu_torch.models import rl_agent as rl
+    from gan_rl_3d_tpu_torch.train import replay_buffer as rb
+    from gan_rl_3d_tpu_torch.train import steps
+
+    cfg, td3 = trainer.config, trainer.td3
+    lc, m, rc = cfg.training.lgan, cfg.model.lgan, cfg.training.rl_agent
+    gen = torch.Generator(device).manual_seed(50)
+    params = _on(trainer.model["lgan"]["params"], device, grad=True)
+    lgan = {"state": _on(trainer.model["lgan"]["state"], device)}
+    g_opt = steps.make_gan_optimizer(params["generator"], lc.generator_lr, lc)
+    d_opt = steps.make_gan_optimizer(params["discriminator"],
+                                     lc.discriminator_lr, lc)
+    gfvs = torch.from_numpy(trainer.gfvs["clean"]).to(device)
+
+    def lgan_step():
+        idx = torch.randint(0, len(gfvs), (lc.d_steps, lc.batch_size),
+                            generator=gen, device=device)
+        draws = steps.draw_lgan_combined(gen, lc.batch_size, m.z_dim,
+                                         m.discriminator_dims, lc.d_steps)
+        lgan["state"], _ = steps.lgan_combined_step(
+            params, lgan["state"], d_opt, g_opt, gfvs[idx], draws,
+            lambda_gp=lc.lambda_gp)
+
+    agent = _agent_copy(trainer.model["agent"], device, td3)
+    batch = random_transitions(td3.batch_size, td3, 51, device)
+
+    def update():
+        rl.agent_update(agent, batch, torch.randn(
+            (td3.batch_size, td3.action_dim), generator=gen, device=device),
+            td3)
+
+    model = {**{k: _on(trainer.model[k], device) for k in ("ae", "lgan")},
+             "agent": _agent_copy(trainer.model["agent"], device, td3)}
+    buf = rb.ReplayBuffer(cfg.model.rl_agent.buffer_size, td3.state_dim,
+                          td3.action_dim, device)
+    buf.add_batch(random_transitions(RL_PREFILL, td3, 52, device))
+    data = trainer._resident_train_data()
+    envs = rc.envs_per_step
+    ou = rl.ou_init(td3, (envs,), device)
+    weights = dict(w_chamfer=cfg.loss.w_chamfer, w_gfv=cfg.loss.w_gfv,
+                   w_discriminator=cfg.loss.w_discriminator)
+
+    def rl_iter():
+        idx = torch.randint(0, len(data), (envs,), generator=gen,
+                            device=device)
+        draws = steps.draw_rl_step(
+            gen, envs, data.shape[1], cfg=td3,
+            buffer_size=min(buf.size + envs, buf.capacity),
+            updates_per_step=rc.updates_per_step, spec=trainer.preproc)
+        steps.rl_step(model, buf, ou, {"complete_pc": data[idx],
+                                       "pad": torch.zeros(envs,
+                                                          device=device)},
+                      draws, cfg=td3,
+                      start_training_size=rc.start_training_steps,
+                      updates_per_step=rc.updates_per_step,
+                      spec=trainer.preproc, **weights)
+
+    cases = (("lgan_combined_step", lgan_step, 10, 5),
+             ("agent_update", update, 20, 10),
+             ("rl_step", rl_iter, 2, TRACE_RL))
+    ms = {}
+    for name, fn, reps, _ in cases:
+        ms[name] = timed_ms(fn, reps=reps, repeats=3)
+        print(f"{name}: {ms[name]:.3f} ms a call")
+    torch.cuda.synchronize()
+    return cases, ms
+
+
+def trace_rl_steps(cases, ms) -> dict:
+    """A torch.profiler trace of each case of ``phase_rl_times``."""
+    rows = {name: _trace(fn, calls, ms[name], name)
+            for name, fn, _, calls in cases}
+    torch.cuda.synchronize()
+    return rows
+
+
 def main() -> None:
     device = phase_device()
     from gan_rl_3d_tpu_torch.convert import model_from_numpy
@@ -1549,14 +2079,19 @@ def main() -> None:
                                                             Path(tmp))
         training, cfg = phase_train(device, Path(tmp))
         evaluation = phase_eval(device, Path(tmp), cfg)
+        rl_path, trainer = phase_rl(device, cfg)
+        rl_checks(device, trainer)
     rows = phase_times(device, engine, engine_bf16, engine_q)
+    rl_cases = phase_rl_times(device, trainer)
     rows.update(phase_train_times(device))
+    step_rows = trace_rl_steps(*rl_cases)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         by_path = {"serving": serving.get(name, 0),
                    "training": training.get(name, 0),
-                   "evaluation": evaluation.get(name, 0)}
+                   "evaluation": evaluation.get(name, 0),
+                   "rl": rl_path.get(name, 0)}
         expect(name in WIDE_INSTANCES or sum(by_path.values()) > 0,
                f"{name} never launched on a main path")
         expect(checks.get(name, 0) > 0, f"{name} never checked")
@@ -1576,6 +2111,7 @@ def main() -> None:
     print("kernels: " + ", ".join(
         f"{k['name']} x{k['launches']} (checks x{k['launches_in_checks']})"
         for k in kernels))
+    print("rl steps: " + json.dumps(step_rows))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

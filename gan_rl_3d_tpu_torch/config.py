@@ -1,11 +1,11 @@
 """Typed configuration (gan_rl_3d_tpu/config.py).
 
-Frozen dataclasses for ``model.*``, the training fields the serving path,
-``evaluate`` and the autoencoder phase read, ``loss``, ``data``,
-``evaluation`` and ``logging``, with the JAX package's defaults and validation
-(gan_rl_3d_tpu/config.py:29-311). ``load_config`` reads the same YAML
-schema; sections and keys the port does not model yet (the LGAN, RL and
-joint training blocks but the exploration noise) are skipped.
+Frozen dataclasses for ``model.*``, the training fields of the serving
+path, ``evaluate`` and phases 1-4 (autoencoder, LGAN, RL), ``loss``,
+``data``, ``evaluation`` and ``logging``, with the JAX package's defaults
+and validation (gan_rl_3d_tpu/config.py:29-311). ``load_config`` reads the
+same YAML schema; sections and keys the port does not model yet (the
+joint block, the logger's backends) are skipped.
 """
 
 from __future__ import annotations
@@ -46,6 +46,12 @@ class RLAgentModelConfig:
     state_dim: int = 128
     action_dim: int = 1
     hidden_dims: Tuple[int, ...] = (400, 400, 300, 300)
+    actor_lr: float = 1e-4
+    critic_lr: float = 1e-3
+    tau: float = 0.005
+    gamma: float = 0.99
+    buffer_size: int = 100000
+    batch_size: int = 64
 
 
 @dataclass(frozen=True)
@@ -69,8 +75,37 @@ class AETrainConfig:
 
 
 @dataclass(frozen=True)
+class LGANTrainConfig:
+    epochs: int = 200
+    batch_size: int = 50
+    generator_lr: float = 1e-4
+    discriminator_lr: float = 1e-4
+    beta1: float = 0.5
+    beta2: float = 0.9
+    lambda_gp: float = 10.0
+    d_steps: int = 5
+
+
+@dataclass(frozen=True)
 class RLTrainConfig:
+    episodes: int = 1000
+    max_steps_per_episode: int = 10
     exploration_noise: float = 0.1
+    policy_noise: float = 0.2
+    noise_clip: float = 0.5
+    policy_delay: int = 2
+    # actor updates skipped for the first N TD3 updates
+    # (models.rl_agent.TD3Config.actor_warmup)
+    actor_warmup: int = 0
+    # then the actor lr ramps to actor_lr over this many applied policy
+    # updates (TD3Config.actor_lr_ramp; 0 = constant lr)
+    actor_lr_ramp: int = 0
+    start_training_steps: int = 1000
+    # parallel environments per iteration, env steps per episode (capped
+    # by max_steps_per_episode), TD3 updates per iteration
+    envs_per_step: int = 32
+    steps_per_episode: int = 1
+    updates_per_step: int = 1
 
 
 @dataclass(frozen=True)
@@ -92,6 +127,7 @@ class TrainingConfig:
     log_dir: str = "./logs"
     results_dir: str = "./results"
     autoencoder: AETrainConfig = field(default_factory=AETrainConfig)
+    lgan: LGANTrainConfig = field(default_factory=LGANTrainConfig)
     rl_agent: RLTrainConfig = field(default_factory=RLTrainConfig)
 
     def __post_init__(self):
@@ -112,6 +148,9 @@ class TrainingConfig:
 
 @dataclass(frozen=True)
 class LossConfig:
+    w_chamfer: float = 100.0
+    w_gfv: float = 10.0
+    w_discriminator: float = 0.01
     chamfer_loss: str = "bidirectional"
     reconstruction_loss: str = "chamfer"
 
@@ -196,8 +235,18 @@ class Config:
     logging: LoggingConfig = field(default_factory=LoggingConfig)
 
     def td3_config(self) -> TD3Config:
+        """model.rl_agent + training.rl_agent as the TD3 step's config
+        (config.py:356-380)."""
+        m, t = self.model.rl_agent, self.training.rl_agent
         return TD3Config(
-            exploration_noise=self.training.rl_agent.exploration_noise)
+            state_dim=m.state_dim, action_dim=m.action_dim,
+            actor_hidden=m.hidden_dims, critic_hidden=m.hidden_dims,
+            actor_lr=m.actor_lr, critic_lr=m.critic_lr, gamma=m.gamma,
+            tau=m.tau, batch_size=m.batch_size,
+            exploration_noise=t.exploration_noise,
+            policy_noise=t.policy_noise, noise_clip=t.noise_clip,
+            policy_delay=t.policy_delay, actor_warmup=t.actor_warmup,
+            actor_lr_ramp=t.actor_lr_ramp)
 
     def preproc_spec(self) -> PreprocSpec:
         """data.{augmentation.*, normalize, center, unit_sphere,
@@ -214,8 +263,10 @@ def flagship_config() -> Config:
     """The shipped recipe (configs/config.yaml), as far as the port models
     it, without reading YAML: the default widths with an 8-d latent action
     space (z_dim = action_dim = 8), bf16_selective training at batch 64,
-    the 200-epoch cosine autoencoder phase, and all five evaluation
-    metrics."""
+    the 200-epoch cosine autoencoder phase, the LGAN phase (10 epochs,
+    batch 16, 3 D steps a G step), the RL phase (22,000 episodes over 64
+    parallel environments, 64 TD3 updates an iteration, critic warmup and
+    actor ramp), and all five evaluation metrics."""
     return Config(
         model=ModelConfig(lgan=LGANModelConfig(z_dim=8),
                           rl_agent=RLAgentModelConfig(action_dim=8)),
@@ -224,7 +275,17 @@ def flagship_config() -> Config:
             num_workers=4, checkpoint_dir="./checkpoints", log_dir="./logs",
             autoencoder=AETrainConfig(
                 epochs=200, lr_schedule="cosine", batch_size=64, lr=1e-3,
-                weight_decay=1e-5, scheduler_step=20, scheduler_gamma=0.5)),
+                weight_decay=1e-5, scheduler_step=20, scheduler_gamma=0.5),
+            lgan=LGANTrainConfig(
+                epochs=10, batch_size=16, generator_lr=1e-4,
+                discriminator_lr=1e-4, beta1=0.5, beta2=0.9, lambda_gp=10.0,
+                d_steps=3),
+            rl_agent=RLTrainConfig(
+                episodes=22000, max_steps_per_episode=5,
+                exploration_noise=0.1, policy_noise=0.2, noise_clip=0.5,
+                policy_delay=2, start_training_steps=256, envs_per_step=64,
+                updates_per_step=64, actor_warmup=2000,
+                actor_lr_ramp=1500)),
         evaluation=EvaluationConfig(metrics=(
             "chamfer_distance", "completion_ratio", "hausdorff_distance",
             "f_score", "emd")),

@@ -4,9 +4,18 @@
 example ``jax.tree.map(np.asarray, net.init_model(key, config))``) and
 returns the port's model: the same nested dictionaries with tensors, kept
 to what serving reads (``ae``, ``lgan``, ``agent.actor`` and an optional
-``gan_path``). Critics, target networks and optimizer state are dropped.
-``engine_from_numpy`` does the same for a folded engine tree, int8 or not;
-``model_to_numpy`` maps the port's tree back to numpy.
+``gan_path``). ``agent_from_numpy`` builds the whole TD3 agent from such a
+tree: networks, targets, the TD3 step and the Adam moments, which either
+package's file carries under ``agent.opt``. ``engine_from_numpy`` does
+the same for a folded engine tree, int8 or not; ``model_to_numpy`` and
+``agent_to_numpy`` map the port's trees back to numpy.
+
+The Adam moments: a JAX file holds per network the optax state (a
+ScaleByAdamState and an EmptyState, read as the stand-ins of
+``utils.checkpoint``); the port writes ``{"count", "mu", "nu"}`` as plain
+numpy, so neither package needs optax to read the other's file. They map
+to torch's Adam state leaf by leaf: count -> step, mu -> exp_avg, nu ->
+exp_avg_sq.
 """
 
 from __future__ import annotations
@@ -15,9 +24,10 @@ import numpy as np
 import torch
 
 from gan_rl_3d_tpu_torch.device import resolve_device
+from gan_rl_3d_tpu_torch.models import rl_agent as rl
 from gan_rl_3d_tpu_torch.models.inference import cast_engine
 from gan_rl_3d_tpu_torch.utils.checkpoint import to_numpy
-from gan_rl_3d_tpu_torch.utils.tree import tree_map
+from gan_rl_3d_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 _ENGINE_KEYS = ("encoder", "decoder", "generator", "actor", "discriminator")
 
@@ -56,8 +66,73 @@ def model_from_numpy(tree: dict, *, device: str | torch.device = "cuda") -> dict
 def model_to_numpy(model: dict) -> dict:
     """The inverse of ``model_from_numpy``: the port's tree (any subset of
     ``ae``, ``lgan``, ``agent``, ``gan_path``) as f32 numpy arrays in the
-    JAX package's layout."""
-    return tree_map(to_numpy, model)
+    JAX package's layout; a full agent as ``agent_to_numpy`` writes it."""
+    return {k: agent_to_numpy(v) if k == "agent" else tree_map(to_numpy, v)
+            for k, v in model.items()}
+
+
+def _adam_to_numpy(opt, params: dict) -> dict:
+    leaves = tree_leaves(params)
+    states = [opt.state.get(p, {}) for p in leaves]
+    count = int(states[0]["step"]) if states[0] else 0
+
+    def moment(key):
+        return tree_unflatten(params, [
+            to_numpy(s[key]) if s else np.zeros(tuple(p.shape), np.float32)
+            for p, s in zip(leaves, states)])
+
+    return {"count": np.int32(count), "mu": moment("exp_avg"),
+            "nu": moment("exp_avg_sq")}
+
+
+def agent_to_numpy(agent: dict) -> dict:
+    """The agent as numpy in the JAX layout: each network's ``params`` and
+    ``state``, ``opt`` as ``{"count", "mu", "nu"}`` per online network
+    and ``step`` as int32. A serving agent (the actor alone) passes
+    through as it is."""
+    out = {k: tree_map(to_numpy, v) for k, v in agent.items()
+           if k not in ("opt", "step")}
+    if "opt" in agent:
+        out["opt"] = {name: _adam_to_numpy(opt, agent[name]["params"])
+                      for name, opt in agent["opt"].items()}
+        out["step"] = np.int32(agent["step"])
+    return out
+
+
+def _adam_moments(state) -> dict:
+    """{"count", "mu", "nu"} from the port's dict or from optax's state as
+    the stand-ins read it (a tuple holding a ScaleByAdamState)."""
+    if isinstance(state, dict):
+        return state
+    for part in state:
+        if hasattr(part, "mu"):
+            return {"count": part.count, "mu": part.mu, "nu": part.nu}
+    raise ValueError("no Adam moments in the optimizer state")
+
+
+def agent_from_numpy(tree: dict, cfg: rl.TD3Config, *,
+                     device: str | torch.device = "cuda") -> dict:
+    """The whole TD3 agent from a JAX-layout tree with numpy leaves (either
+    package's checkpoint): networks, targets, the step and the Adam
+    moments of each online network."""
+    dev = resolve_device(device)
+    agent = rl.agent_from_networks(
+        {name: tree_from_numpy(tree[name], dev) for name in rl.NETWORKS},
+        cfg, dev)
+    for name in rl.NETWORKS:
+        agent[name + "_target"] = tree_from_numpy(tree[name + "_target"], dev)
+        m = _adam_moments(tree["opt"][name])
+        count = int(np.asarray(m["count"]))
+        if count == 0:
+            continue
+        opt = agent["opt"][name]
+        for p, mu, nu in zip(tree_leaves(agent[name]["params"]),
+                             tree_leaves(m["mu"]), tree_leaves(m["nu"])):
+            opt.state[p] = {"step": torch.tensor(float(count)),
+                            "exp_avg": _leaf(mu, dev),
+                            "exp_avg_sq": _leaf(nu, dev)}
+    agent["step"] = int(np.asarray(tree["step"]))
+    return agent
 
 
 def engine_from_numpy(tree: dict, *, device: str | torch.device = "cuda",

@@ -1,4 +1,5 @@
-"""Dense(+BatchNorm)(+activation) stacks (gan_rl_3d_tpu/models/common.py)."""
+"""Dense(+BatchNorm)(+activation) stacks (gan_rl_3d_tpu/models/common.py),
+and the optimizer step the training phases share."""
 
 from __future__ import annotations
 
@@ -7,6 +8,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from gan_rl_3d_tpu_torch import nn
+from gan_rl_3d_tpu_torch.utils.tree import tree_leaves
 
 Tensor = torch.Tensor
 
@@ -59,3 +61,13 @@ def bn_mlp_apply(params: list, state: list, x: Tensor, *,
             if final_activation is not None:
                 x = final_activation(x)
     return x, new_state
+
+
+def grad_step(opt: torch.optim.Optimizer, loss: Tensor, params) -> None:
+    """One step of ``opt`` on the gradient of ``loss`` w.r.t. the leaves
+    of ``params`` alone: the other networks in the graph get no gradient,
+    as with jax.grad of one argument."""
+    leaves = tree_leaves(params)
+    for p, g in zip(leaves, torch.autograd.grad(loss, leaves)):
+        p.grad = g
+    opt.step()

@@ -1,15 +1,19 @@
-"""Latent GAN, init and eval mode (gan_rl_3d_tpu/models/latent_gan.py).
+"""Latent GAN (gan_rl_3d_tpu/models/latent_gan.py).
 
 Generator z -> [256, 512, 512, 256] (+BN+ReLU) -> 128 + tanh.
 Discriminator 128 -> [128, 256, 512, 256] -> 1: each hidden block Dense
 (spectral-normed when the state carries ``sn``) + LayerNorm +
-LeakyReLU(0.2); the final Dense has no activation. Without ``sn`` state it
-is the plain variant.
+LeakyReLU(0.2) + Dropout(0.3) in training; the final Dense has no
+activation. Without ``sn`` state it is the plain variant. Both apply
+functions return (output, new state), as the JAX ones do: in training the
+generator's BN statistics and the spectral-norm vectors advance once per
+call. Dropout takes its keep masks, one per hidden layer, as drawn by
+``draw_dropout_masks`` or replayed from JAX's keys.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -68,21 +72,47 @@ def lgan_init(generator: torch.Generator, z_dim: int = 1,
             {"generator": g_s, "discriminator": d_s})
 
 
-def generator_apply(params: dict, state: dict, z: Tensor) -> Tensor:
-    """z (B, z_dim) -> clean GFV (B, latent_dim) in [-1, 1]."""
-    return bn_mlp_apply(params["mlp"], state["mlp"], z,
-                        final_activation=torch.tanh)[0]
+def generator_apply(params: dict, state: dict, z: Tensor, *,
+                    training: bool = False) -> Tuple[Tensor, dict]:
+    """z (B, z_dim) -> clean GFV (B, latent_dim) in [-1, 1], and the new
+    BN state (centered training statistics, as phases 3-5 use)."""
+    gfv, mlp_s = bn_mlp_apply(params["mlp"], state["mlp"], z,
+                              training=training, final_activation=torch.tanh)
+    return gfv, {"mlp": mlp_s}
+
+
+def draw_dropout_masks(generator: torch.Generator, bsz: int,
+                       dims: Sequence[int], rate: float = 0.3
+                       ) -> List[Optional[Tensor]]:
+    """Keep masks for one training call of the discriminator of widths
+    ``dims`` (DISCRIMINATOR_DIMS): (B, d) booleans, true with probability
+    1 - rate, for each hidden layer; None for the last."""
+    return [torch.rand((bsz, d), generator=generator,
+                       device=generator.device) < 1.0 - rate
+            for d in dims[:-1]] + [None]
 
 
 def discriminator_apply(params: dict, state: dict, gfv: Tensor, *,
-                        leak: float = 0.2) -> Tensor:
-    """GFV (B, latent_dim) -> realness score (B, 1)."""
+                        training: bool = False,
+                        keep_masks: Optional[Sequence] = None,
+                        dropout_rate: float = 0.3, leak: float = 0.2
+                        ) -> Tuple[Tensor, dict]:
+    """GFV (B, latent_dim) -> realness score (B, 1), and the new state (the
+    spectral-norm vectors after one power iteration in training). Dropout
+    runs in training when ``keep_masks`` is given (latent_gan.py:95-132)."""
     x = gfv
-    for p, s in zip(params["layers"], state["layers"]):
+    new_state = []
+    masks = keep_masks if training and keep_masks is not None else None
+    for i, (p, s) in enumerate(zip(params["layers"], state["layers"])):
         w = p["dense"]["w"]
+        layer_s = {}
         if "sn" in s:
-            w = nn.spectral_norm_eval(w, s["sn"])
+            w, layer_s["sn"] = nn.spectral_norm_apply(w, s["sn"],
+                                                      training=training)
         x = x @ w + p["dense"]["b"]
         if "ln" in p:
             x = nn.leaky_relu(nn.layernorm(p["ln"], x), leak)
-    return x
+            if masks is not None:
+                x = nn.dropout(x, masks[i], dropout_rate)
+        new_state.append(layer_s)
+    return x, {"layers": new_state}

@@ -1,18 +1,22 @@
-"""RL-GAN-Net completion path, unfolded (gan_rl_3d_tpu/models/rl_gan_net.py).
+"""RL-GAN-Net composite (gan_rl_3d_tpu/models/rl_gan_net.py).
 
 ``complete`` is the plain reference the folded engine
 (models/inference.py::complete_fast) is held against: encoder -> actor z ->
 generator -> decoder, the plain AE reconstruction, and the hybrid gate.
+``env_reset`` / ``env_step`` are the batched RL environment of phase 4:
+encode, then z -> G -> decode -> reward, whose Chamfer distance is K3 on
+the card.
 
-The model is a dictionary in the JAX tree's layout, as ``init_model`` and
-``convert.model_from_numpy`` build it: ``ae``, ``lgan`` and
-``agent.actor`` each hold ``params`` and ``state``, and an optional
+The model is a dictionary in the JAX tree's layout: ``ae`` and ``lgan``
+each hold ``params`` and ``state``; ``agent`` is the TD3 agent
+(``models.rl_agent``), or only its ``actor`` when
+``convert.model_from_numpy`` builds the serving model; an optional
 ``gan_path`` snapshot holds the serving GAN branch's generator and decoder.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -20,27 +24,33 @@ from gan_rl_3d_tpu_torch.config import GATE_MODES
 from gan_rl_3d_tpu_torch.models import autoencoder as ae
 from gan_rl_3d_tpu_torch.models import latent_gan as lg
 from gan_rl_3d_tpu_torch.models import rl_agent as rl
+from gan_rl_3d_tpu_torch.ops import losses as losses_ops
+from gan_rl_3d_tpu_torch.utils.tree import tree_map
 
 Tensor = torch.Tensor
 
+PHASES = ("autoencoder", "lgan", "rl_agent", "joint")
 
-def init_model(generator: torch.Generator, config) -> dict:
-    """The serving model with fresh weights (rl_gan_net.py:38-58): ``ae``,
-    ``lgan`` and ``agent.actor``, drawn from ``generator`` in that order;
-    the critics, target networks and optimizer state wait for the RL
-    phase. ``config`` is a ``config.Config``."""
-    a, g, r = config.model.autoencoder, config.model.lgan, config.model.rl_agent
+
+def init_model(generator: torch.Generator, config,
+               device: "str | torch.device" = "cpu") -> dict:
+    """The full model with fresh weights (rl_gan_net.py:38-58): ``ae``,
+    ``lgan``, the actor, then the two critics drawn from ``generator`` in
+    that order (a seed gives the ``ae``, ``lgan`` and actor it gave before
+    the critics were ported), on ``device``. The agent's targets start as
+    copies and its optimizers fresh. ``config`` is a ``config.Config``."""
+    a, g = config.model.autoencoder, config.model.lgan
+    cfg = config.td3_config()
     ae_p, ae_s = ae.autoencoder_init(
         generator, a.input_dim, a.latent_dim, a.num_points, a.encoder_dims,
         a.decoder_dims, a.encoder_type, a.decoder_type)
     lg_p, lg_s = lg.lgan_init(generator, g.z_dim, g.latent_dim,
                               g.generator_dims, g.discriminator_dims,
                               spectral_norm=g.spectral_norm)
-    actor_p, actor_s = rl.actor_init(generator, r.state_dim, r.action_dim,
-                                     r.hidden_dims)
-    return {"ae": {"params": ae_p, "state": ae_s},
-            "lgan": {"params": lg_p, "state": lg_s},
-            "agent": {"actor": {"params": actor_p, "state": actor_s}}}
+    move = lambda tree: tree_map(lambda v: v.to(device), tree)  # noqa: E731
+    return {"ae": move({"params": ae_p, "state": ae_s}),
+            "lgan": move({"params": lg_p, "state": lg_s}),
+            "agent": rl.agent_init(generator, cfg, device)}
 
 
 def encode(model: dict, pc: Tensor, mask: Optional[Tensor] = None) -> Tensor:
@@ -55,7 +65,7 @@ def decode(model: dict, gfv: Tensor) -> Tensor:
 
 def generate(model: dict, z: Tensor) -> Tensor:
     return lg.generator_apply(model["lgan"]["params"]["generator"],
-                              model["lgan"]["state"]["generator"], z)
+                              model["lgan"]["state"]["generator"], z)[0]
 
 
 def gan_generate(model: dict, z: Tensor) -> Tensor:
@@ -64,7 +74,7 @@ def gan_generate(model: dict, z: Tensor) -> Tensor:
     snap = model.get("gan_path")
     if snap is not None:
         return lg.generator_apply(snap["generator"]["params"],
-                                  snap["generator"]["state"], z)
+                                  snap["generator"]["state"], z)[0]
     return generate(model, z)
 
 
@@ -79,7 +89,8 @@ def gan_decode(model: dict, gfv: Tensor) -> Tensor:
 
 def discriminate(model: dict, gfv: Tensor) -> Tensor:
     return lg.discriminator_apply(model["lgan"]["params"]["discriminator"],
-                                  model["lgan"]["state"]["discriminator"], gfv)
+                                  model["lgan"]["state"]["discriminator"],
+                                  gfv)[0]
 
 
 def select_z(model: dict, noisy_gfv: Tensor, cfg: rl.TD3Config, *,
@@ -148,3 +159,76 @@ def complete(model: dict, pc: Tensor, mask: Optional[Tensor] = None, *,
             lambda: (discriminate(model, clean_gfv),
                      discriminate(model, noisy_gfv)), gate_bias))
     return results
+
+
+@torch.no_grad()
+def forward(model: dict, pc: Tensor, *, phase: str = "autoencoder",
+            mode: str = "inference", mask: Optional[Tensor] = None,
+            cfg: rl.TD3Config = rl.TD3Config(),
+            z: Optional[Tensor] = None) -> Dict[str, Tensor]:
+    """Phase-gated eval-mode forward (rl_gan_net.py:221-248). The lgan
+    phase decodes G(z) for the standard-normal draw ``z`` (B, z_dim)."""
+    if phase not in PHASES:
+        raise ValueError(f"invalid phase {phase!r}; must be one of {PHASES}")
+    if mode == "inference" or phase in ("rl_agent", "joint"):
+        return complete(model, pc, mask, cfg=cfg,
+                        hybrid=(mode == "inference"))
+    noisy_gfv = encode(model, pc, mask)
+    results = {"noisy_gfv": noisy_gfv}
+    if phase == "autoencoder":
+        results["ae_reconstruction"] = decode(model, noisy_gfv)
+    elif phase == "lgan":
+        if z is None:
+            raise ValueError("the lgan-phase forward needs a z draw")
+        results["z_vector"] = z
+        results["clean_gfv"] = generate(model, z)
+        results["completed_pc"] = decode(model, results["clean_gfv"])
+    return results
+
+
+@torch.no_grad()
+def compute_reward(model: dict, pred_pc: Tensor, target_pc: Tensor,
+                   pred_gfv: Tensor, target_gfv: Tensor, *,
+                   w_chamfer: float = 100.0, w_gfv: float = 10.0,
+                   w_discriminator: float = 0.01) -> Tensor:
+    """Per-sample rewards (B,) (rl_gan_net.py:251-266). No gradient: K3
+    saves nothing for a backward pass."""
+    return losses_ops.completion_reward_batched(
+        pred_pc, target_pc, pred_gfv, target_gfv,
+        discriminate(model, pred_gfv), w_chamfer=w_chamfer, w_gfv=w_gfv,
+        w_discriminator=w_discriminator)
+
+
+class EnvState(NamedTuple):
+    """Everything a step needs, batched (rl_gan_net.py:275-281)."""
+
+    state: Tensor       # the observation: noisy GFVs (B, latent_dim)
+    target_pc: Tensor   # (B, N, 3)
+    target_gfv: Tensor  # (B, latent_dim)
+
+
+@torch.no_grad()
+def env_reset(model: dict, incomplete_pc: Tensor, complete_pc: Tensor,
+              mask: Optional[Tensor] = None) -> EnvState:
+    """(rl_gan_net.py:284-292)"""
+    return EnvState(state=encode(model, incomplete_pc, mask),
+                    target_pc=complete_pc,
+                    target_gfv=encode(model, complete_pc))
+
+
+@torch.no_grad()
+def env_step(model: dict, env: EnvState, action: Tensor, *,
+             w_chamfer: float = 100.0, w_gfv: float = 10.0,
+             w_discriminator: float = 0.01
+             ) -> Tuple[EnvState, Tensor, Tensor, Dict[str, Tensor]]:
+    """z -> G -> decode -> reward (rl_gan_net.py:295-320). Returns
+    (next env state, rewards (B,), dones (B,), info)."""
+    clean_gfv = generate(model, action)
+    completed = decode(model, clean_gfv)
+    rewards = compute_reward(model, completed, env.target_pc, clean_gfv,
+                             env.target_gfv, w_chamfer=w_chamfer,
+                             w_gfv=w_gfv, w_discriminator=w_discriminator)
+    next_env = EnvState(state=clean_gfv, target_pc=env.target_pc,
+                        target_gfv=env.target_gfv)
+    return (next_env, rewards, torch.ones_like(rewards),
+            {"completed_pc": completed, "clean_gfv": clean_gfv})

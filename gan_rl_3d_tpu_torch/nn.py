@@ -4,8 +4,8 @@ Parameters are dictionaries of tensors in the JAX package's layout: dense
 weights are (in, out), so a layer is ``x @ w + b`` on channels-last input.
 Initialisers draw from an explicit ``torch.Generator``. BatchNorm runs in
 eval mode and in both training statistics modes of the JAX package;
-LayerNorm and spectral norm have their inits and eval mode; dropout and
-the spectral-norm power iteration come with the LGAN slice.
+LayerNorm, dropout (given its keep mask) and spectral norm with its
+power iteration follow nn.py:270-349.
 """
 
 from __future__ import annotations
@@ -183,3 +183,35 @@ def spectral_norm_eval(w: Tensor, state: dict) -> Tensor:
     """w / sigma with sigma = v . (W u) from the stored singular-vector
     estimates; eval mode runs no power iteration (nn.py:335-349)."""
     return w / torch.dot(state["v"], w @ state["u"])
+
+
+def spectral_norm_apply(w: Tensor, state: dict, *, training: bool,
+                        n_iter: int = 1, eps: float = 1e-12
+                        ) -> Tuple[Tensor, dict]:
+    """(w / sigma, new state) (nn.py:320-349). In training mode ``n_iter``
+    power iterations on the detached weight advance u and v first (torch
+    order for an (out, in) weight: v = normalize(W^T u), u =
+    normalize(W v)). u and v are constants for differentiation while sigma
+    = v . (W u) stays a function of w, so WGAN-GP's double backward runs
+    through w / sigma."""
+    u, v = state["u"].detach(), state["v"].detach()
+    if training:
+        w_c = w.detach()
+        for _ in range(n_iter):
+            v = w_c @ u
+            v = v / (torch.linalg.vector_norm(v) + eps)
+            u = v @ w_c
+            u = u / (torch.linalg.vector_norm(u) + eps)
+        state = {"u": u, "v": v}
+    return w / torch.dot(v, w @ u), state
+
+
+def dropout(x: Tensor, keep_mask: Optional[Tensor], rate: float) -> Tensor:
+    """Inverted dropout given the keep mask (boolean, x's shape), as
+    jax.random.bernoulli(key, 1 - rate, x.shape) draws it (nn.py:291-296);
+    ``keep_mask=None`` or rate 0 is the identity."""
+    if keep_mask is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    return torch.where(keep_mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))

@@ -1,25 +1,38 @@
-"""Train and eval steps of the autoencoder phase (gan_rl_3d_tpu/train/steps.py:42-330).
+"""Train and eval steps of phases 1-4 (gan_rl_3d_tpu/train/steps.py:42-685).
 
-PyTorch runs eagerly, so a step is a plain function: the data transforms
-on the device, the AE forward with training BatchNorm, the Chamfer loss
-(kernels K3 forward, K4/K5 backward on the card), backward and Adam. The
-JAX step is pure and returns new parameters; here the optimizer updates
-the parameter tensors in place, and the step returns the new BatchNorm
-state. The step takes the draws of ``ops.pointcloud.draw_training_batch``
-instead of a key, so a test can feed it the numbers JAX drew.
+PyTorch runs eagerly, so a step is a plain function. Phase 1: the data
+transforms on the device, the AE forward with training BatchNorm, the
+Chamfer loss (kernels K3 forward, K4/K5 backward on the card), backward
+and Adam. Phase 2 encodes clean and holed clouds with the frozen encoder;
+phase 3 is the latent WGAN-GP (D steps with the gradient penalty's double
+backward, then a G step); phase 4 collects transitions from B parallel
+environments (the reward's Chamfer distance is K3 on the card) into the
+replay ring and runs TD3 updates. The JAX steps are pure and return new
+parameters; here the optimizers update the parameter tensors in place,
+and a step returns the new BatchNorm and spectral-norm state. Each step
+takes its random numbers as arguments (``draw_*`` draws them from a
+device generator), so a test can feed it the numbers JAX drew. Phases
+3-4 run BatchNorm with the centered statistics, as the JAX trainer does
+whatever training.bn_stats says.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from gan_rl_3d_tpu_torch.config import AETrainConfig
+from gan_rl_3d_tpu_torch.config import AETrainConfig, LGANTrainConfig
 from gan_rl_3d_tpu_torch.models import autoencoder as ae
+from gan_rl_3d_tpu_torch.models import latent_gan as lg
+from gan_rl_3d_tpu_torch.models import rl_agent as rl
+from gan_rl_3d_tpu_torch.models import rl_gan_net as net
+from gan_rl_3d_tpu_torch.models.common import grad_step
 from gan_rl_3d_tpu_torch.ops import chamfer
+from gan_rl_3d_tpu_torch.ops import losses as losses_ops
 from gan_rl_3d_tpu_torch.ops import pointcloud as pc_ops
+from gan_rl_3d_tpu_torch.train.replay_buffer import ReplayBuffer
 from gan_rl_3d_tpu_torch.utils.tree import tree_leaves, tree_map
 
 Tensor = torch.Tensor
@@ -164,3 +177,247 @@ def ae_train_epoch(params: dict, bn_state: dict, optimizer, scheduler,
         losses.append(m["loss"])
     return bn_state, {"losses": torch.stack(losses) if losses
                       else torch.zeros(0)}
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: GFV extraction
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def gfv_extract_step(params: dict, bn_state: dict, batch: Dict[str, Tensor],
+                     draws: Dict[str, Tensor], *,
+                     spec: pc_ops.PreprocSpec = pc_ops.DEFAULT_PREPROC
+                     ) -> Tuple[Tensor, Tensor]:
+    """(clean GFV, noisy GFV) of one batch with the frozen eval-mode
+    encoder; holes from ``draws`` (draw_training_batch with
+    augment=False), no augmentation (steps.py:339-352)."""
+    complete, incomplete, mask = pc_ops.apply_training_batch(
+        batch["complete_pc"], draws, spec=spec, do_augment=False)
+    enc_p, enc_s = params["encoder"], bn_state["encoder"]
+    return (ae.encoder_apply(enc_p, enc_s, complete),
+            ae.encoder_apply(enc_p, enc_s, incomplete, mask))
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: latent WGAN-GP
+# ---------------------------------------------------------------------------
+
+
+def make_gan_optimizer(params, lr: float, cfg: LGANTrainConfig
+                       ) -> torch.optim.Adam:
+    """optax.adam(lr, b1=beta1, b2=beta2) (steps.py:360-361)."""
+    return torch.optim.Adam(tree_leaves(params), lr=lr,
+                            betas=(cfg.beta1, cfg.beta2))
+
+
+def draw_lgan_d(generator: torch.Generator, bsz: int, z_dim: int,
+                d_dims: Sequence[int]) -> Dict[str, object]:
+    """The draws of one D step (steps.py:383-384): ``z`` (B, z_dim)
+    standard normal, ``alpha`` (B, 1) U[0, 1), and the dropout keep masks
+    of the real, fake and interpolate calls."""
+    kw = dict(generator=generator, device=generator.device)
+    return {"z": torch.randn((bsz, z_dim), **kw),
+            "keep_real": lg.draw_dropout_masks(generator, bsz, d_dims),
+            "keep_fake": lg.draw_dropout_masks(generator, bsz, d_dims),
+            "alpha": torch.rand((bsz, 1), **kw),
+            "keep_gp": lg.draw_dropout_masks(generator, bsz, d_dims)}
+
+
+def draw_lgan_g(generator: torch.Generator, bsz: int, z_dim: int,
+                d_dims: Sequence[int]) -> Dict[str, object]:
+    """The draws of one G step (steps.py:437-438): ``z`` and ``keep``."""
+    return {"z": torch.randn((bsz, z_dim), generator=generator,
+                             device=generator.device),
+            "keep": lg.draw_dropout_masks(generator, bsz, d_dims)}
+
+
+def draw_lgan_combined(generator: torch.Generator, bsz: int, z_dim: int,
+                       d_dims: Sequence[int], d_steps: int
+                       ) -> Dict[str, object]:
+    return {"d": [draw_lgan_d(generator, bsz, z_dim, d_dims)
+                  for _ in range(d_steps)],
+            "g": draw_lgan_g(generator, bsz, z_dim, d_dims)}
+
+
+def lgan_d_step(lgan_params: dict, lgan_state: dict, d_opt: torch.optim.Adam,
+                real_gfv: Tensor, draws: Dict[str, object], *,
+                lambda_gp: float = 10.0) -> Tuple[dict, Dict[str, Tensor]]:
+    """One discriminator step: WGAN loss + gradient penalty, Adam on D's
+    parameters in place (steps.py:364-420). The fakes come from the
+    training-mode generator without a gradient, so its BN statistics
+    advance; D runs on the real, fake and interpolated batches, each call
+    starting from the previous call's spectral-norm state, and the state
+    kept is the fake call's. Returns (new state, {"d_loss", "wasserstein",
+    "gp"})."""
+    with torch.no_grad():
+        fake, gen_state = lg.generator_apply(
+            lgan_params["generator"], lgan_state["generator"], draws["z"],
+            training=True)
+    d_params = lgan_params["discriminator"]
+    real_scores, d_s1 = lg.discriminator_apply(
+        d_params, lgan_state["discriminator"], real_gfv, training=True,
+        keep_masks=draws["keep_real"])
+    fake_scores, d_s2 = lg.discriminator_apply(
+        d_params, d_s1, fake, training=True, keep_masks=draws["keep_fake"])
+    gp = losses_ops.gradient_penalty(
+        lambda x: lg.discriminator_apply(d_params, d_s2, x, training=True,
+                                         keep_masks=draws["keep_gp"])[0],
+        draws["alpha"], real_gfv, fake, lambda_gp=lambda_gp)
+    w_loss = losses_ops.discriminator_loss(real_scores, fake_scores)
+    d_loss = w_loss + gp
+    grad_step(d_opt, d_loss, d_params)
+    return ({"generator": gen_state, "discriminator": d_s2},
+            {"d_loss": d_loss.detach(), "wasserstein": -w_loss.detach(),
+             "gp": gp.detach()})
+
+
+def lgan_generator_step(lgan_params: dict, lgan_state: dict,
+                        g_opt: torch.optim.Adam, draws: Dict[str, object]
+                        ) -> Tuple[dict, Dict[str, Tensor]]:
+    """One generator step against the training-mode discriminator, Adam on
+    G's parameters in place; both states advance (steps.py:423-455)."""
+    fake, g_state = lg.generator_apply(
+        lgan_params["generator"], lgan_state["generator"], draws["z"],
+        training=True)
+    scores, d_state = lg.discriminator_apply(
+        lgan_params["discriminator"], lgan_state["discriminator"], fake,
+        training=True, keep_masks=draws["keep"])
+    g_loss = losses_ops.generator_loss(scores)
+    grad_step(g_opt, g_loss, lgan_params["generator"])
+    return ({"generator": g_state, "discriminator": d_state},
+            {"g_loss": g_loss.detach()})
+
+
+def _d_steps(lgan_params, lgan_state, d_opt, real_gfvs, d_draws, lambda_gp
+             ) -> Tuple[dict, List[Tensor]]:
+    losses = []
+    for real, draws in zip(real_gfvs, d_draws):
+        lgan_state, m = lgan_d_step(lgan_params, lgan_state, d_opt, real,
+                                    draws, lambda_gp=lambda_gp)
+        losses.append(m["d_loss"])
+    return lgan_state, losses
+
+
+def lgan_combined_step(lgan_params: dict, lgan_state: dict,
+                       d_opt: torch.optim.Adam, g_opt: torch.optim.Adam,
+                       real_gfvs: Tensor, draws: Dict[str, object], *,
+                       lambda_gp: float = 10.0
+                       ) -> Tuple[dict, Dict[str, Tensor]]:
+    """``real_gfvs`` (d_steps, B, latent): one D step per real batch, then
+    one G step (steps.py:458-506). Returns (new state, {"d_loss" (their
+    mean), "g_loss"})."""
+    lgan_state, d_losses = _d_steps(lgan_params, lgan_state, d_opt,
+                                    real_gfvs, draws["d"], lambda_gp)
+    lgan_state, gm = lgan_generator_step(lgan_params, lgan_state, g_opt,
+                                         draws["g"])
+    return lgan_state, {"d_loss": torch.stack(d_losses).mean(),
+                        "g_loss": gm["g_loss"]}
+
+
+def lgan_d_refresh(lgan_params: dict, lgan_state: dict,
+                   d_opt: torch.optim.Adam, real_gfvs: Tensor,
+                   d_draws: Sequence[Dict[str, object]], *,
+                   lambda_gp: float = 10.0
+                   ) -> Tuple[dict, Dict[str, Tensor]]:
+    """K D steps with the generator frozen, ``real_gfvs`` (K, B, latent)
+    (steps.py:509-545). Returns (new state, {"d_losses" (K,)})."""
+    lgan_state, losses = _d_steps(lgan_params, lgan_state, d_opt, real_gfvs,
+                                  d_draws, lambda_gp)
+    return lgan_state, {"d_losses": torch.stack(losses)}
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: RL (batched environments, replay ring, TD3 updates)
+# ---------------------------------------------------------------------------
+
+
+def draw_rl_step(generator: torch.Generator, bsz: int, n: int, *,
+                 cfg: rl.TD3Config, buffer_size: int,
+                 steps_per_episode: int = 1, updates_per_step: int = 1,
+                 spec: pc_ops.PreprocSpec = pc_ops.DEFAULT_PREPROC
+                 ) -> Dict[str, object]:
+    """The draws of one ``rl_step`` over ``bsz`` environments: ``holes``
+    (draw_training_batch without augmentation), ``ou`` (S, B, action_dim)
+    standard normals, one per environment step; per TD3 update ``sample``
+    (U, batch_size) buffer rows uniform over the ``buffer_size`` valid
+    rows after this step's push, and ``noise`` (U, batch_size,
+    action_dim), the target-policy smoothing's standard normal."""
+    kw = dict(generator=generator, device=generator.device)
+    u = updates_per_step
+    return {
+        "holes": pc_ops.draw_training_batch(generator, bsz, n, spec=spec,
+                                            augment=False),
+        "ou": torch.randn((steps_per_episode, bsz, cfg.action_dim), **kw),
+        "sample": torch.randint(0, max(buffer_size, 1),
+                                (u, cfg.batch_size), **kw),
+        "noise": torch.randn((u, cfg.batch_size, cfg.action_dim), **kw),
+    }
+
+
+def rl_step(model: dict, buffer: ReplayBuffer, ou_states: Tensor,
+            batch: Dict[str, Tensor], draws: Dict[str, object], *,
+            cfg: rl.TD3Config, w_chamfer: float = 100.0, w_gfv: float = 10.0,
+            w_discriminator: float = 0.01, start_training_size: int = 64,
+            steps_per_episode: int = 1, updates_per_step: int = 1,
+            spec: pc_ops.PreprocSpec = pc_ops.DEFAULT_PREPROC
+            ) -> Tuple[dict, ReplayBuffer, Tensor, Dict[str, Tensor]]:
+    """One RL iteration over B parallel episodes of ``steps_per_episode``
+    environment steps (steps.py:554-648): cut holes -> env_reset ->
+    [actor + OU -> env_step] per step -> push B * S transitions (step
+    major) -> ``updates_per_step`` TD3 updates once the buffer holds
+    max(start_training_size, batch_size). Updates the agent and the
+    buffer in place; returns (model, buffer, new OU state, {"critic_loss",
+    "actor_loss" (the last update's, 0 without updates), "reward" (the
+    mean episode reward over the rows ``batch["pad"]`` does not mark)})."""
+    with torch.no_grad():
+        complete, incomplete, mask = pc_ops.apply_training_batch(
+            batch["complete_pc"], draws["holes"], spec=spec,
+            do_augment=False)
+        env = net.env_reset(model, incomplete, complete, mask)
+        ou, transitions, rewards = ou_states, [], []
+        for i in range(steps_per_episode):
+            action, ou = rl.select_action(model["agent"], env.state, cfg,
+                                          ou_state=ou, add_noise=True,
+                                          normal=draws["ou"][i])
+            env_next, r, _, _ = net.env_step(
+                model, env, action, w_chamfer=w_chamfer, w_gfv=w_gfv,
+                w_discriminator=w_discriminator)
+            done = torch.full_like(r, float(i == steps_per_episode - 1))
+            transitions.append((env.state, action, r[:, None],
+                                env_next.state, done[:, None]))
+            rewards.append(r)
+            env = env_next
+        buffer.add_batch(rl.TransitionBatch(
+            *(torch.cat(f) for f in zip(*transitions))))
+    zero = torch.zeros((), device=ou.device)
+    metrics = {"critic_loss": zero, "actor_loss": zero}
+    if buffer.size >= max(start_training_size, cfg.batch_size):
+        for u in range(updates_per_step):
+            _, metrics = rl.agent_update(
+                model["agent"], buffer.sample(draws["sample"][u]),
+                draws["noise"][u], cfg)
+    metrics = dict(metrics, reward=_masked_mean(torch.stack(rewards).sum(0),
+                                                batch["pad"]))
+    return model, buffer, ou, metrics
+
+
+@torch.no_grad()
+def rl_eval_reward(model: dict, batch: Dict[str, Tensor],
+                   draws: Dict[str, Tensor], *, cfg: rl.TD3Config,
+                   w_chamfer: float = 100.0, w_gfv: float = 10.0,
+                   w_discriminator: float = 0.01,
+                   spec: pc_ops.PreprocSpec = pc_ops.DEFAULT_PREPROC
+                   ) -> Dict[str, Tensor]:
+    """Greedy single-step reward and Chamfer distance of the completions on
+    a fixed batch with fixed holes ``draws`` (steps.py:651-685)."""
+    complete, incomplete, mask = pc_ops.apply_training_batch(
+        batch["complete_pc"], draws, spec=spec, do_augment=False)
+    env0 = net.env_reset(model, incomplete, complete, mask)
+    action, _ = rl.select_action(model["agent"], env0.state, cfg)
+    _, rewards, _, info = net.env_step(
+        model, env0, action, w_chamfer=w_chamfer, w_gfv=w_gfv,
+        w_discriminator=w_discriminator)
+    per_cd = chamfer.chamfer_distance(info["completed_pc"], env0.target_pc)
+    return {"reward": _masked_mean(rewards, batch["pad"]),
+            "chamfer": _masked_mean(per_cd, batch["pad"])}

@@ -1,15 +1,19 @@
-"""Curriculum trainer, phase 1 (gan_rl_3d_tpu/train/trainer.py).
+"""Curriculum trainer, phases 1-4 (gan_rl_3d_tpu/train/trainer.py).
 
 ``RLGANNetTrainer`` holds the data splits, the model tree and the
-checkpoints. The model tree is the serving model (``ae``, ``lgan``,
-``agent.actor`` and, from a checkpoint that has one, ``gan_path``), which
-``evaluate`` and ``complete_clouds --checkpoint`` read. This slice trains
-the autoencoder phase: the train split lives on the device for the whole
-phase, each epoch is a loop of ``steps.ae_train_step`` over a shuffled
-batch plan, validation runs with fixed per-batch hole draws, and the best
-and periodic checkpoints are written in the JAX package's pickle layout.
-The LGAN, RL and joint phases are later slices (ROADMAP queue 1, items
-12-15).
+checkpoints. The model tree holds ``ae``, ``lgan``, the whole TD3 agent
+and, from a checkpoint that has one, ``gan_path``; ``evaluate`` and
+``complete_clouds --checkpoint`` read its serving part. Phase 1 trains the
+autoencoder: the train split lives on the device for the whole phase,
+each epoch is a loop of ``steps.ae_train_step`` over a shuffled batch
+plan, validation runs with fixed per-batch hole draws. Phase 2 extracts
+the train split's (clean, noisy) GFV pairs; phase 3 trains the latent
+WGAN-GP on the clean ones; phase 4 trains the TD3 agent in batched
+environments whose reward runs K3, with a greedy eval on a fixed,
+evenly spread validation batch. The best and periodic checkpoints are
+written in the JAX package's pickle layout. The ``_trainstate`` siblings
+(mid-phase resume) and the joint phase are later items (ROADMAP queue 1,
+items 14-15).
 """
 
 from __future__ import annotations
@@ -17,24 +21,27 @@ from __future__ import annotations
 import dataclasses
 import time
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from gan_rl_3d_tpu_torch.config import Config, load_config
-from gan_rl_3d_tpu_torch.convert import (model_from_numpy, model_to_numpy,
-                                         tree_from_numpy)
+from gan_rl_3d_tpu_torch.convert import (agent_from_numpy, model_from_numpy,
+                                         model_to_numpy, tree_from_numpy)
 from gan_rl_3d_tpu_torch.data.dataset import (BatchLoader, ShapeNetDataset,
                                               setup_dataset)
 from gan_rl_3d_tpu_torch.device import resolve_device
+from gan_rl_3d_tpu_torch.models import rl_agent as rl
 from gan_rl_3d_tpu_torch.models import rl_gan_net as net
 from gan_rl_3d_tpu_torch.ops import pointcloud as pc_ops
+from gan_rl_3d_tpu_torch.train import replay_buffer as rb
 from gan_rl_3d_tpu_torch.train import steps
 from gan_rl_3d_tpu_torch.utils import checkpoint as ckpt_lib
-from gan_rl_3d_tpu_torch.utils.tree import tree_map
+from gan_rl_3d_tpu_torch.utils.tree import tree_leaves, tree_map
 
-PHASES = ("autoencoder", "lgan", "rl_agent", "joint")
+PHASES = net.PHASES
+EVAL_HOLES_SEED = 777  # the greedy eval's fixed holes (trainer.py:460)
 
 
 class RLGANNetTrainer:
@@ -52,20 +59,27 @@ class RLGANNetTrainer:
         self.compute_dtype, self.precision_selective = steps.compute_dtype_of(
             cfg.training.precision)
         self.bn_stats = cfg.training.bn_stats
+        self.td3 = cfg.td3_config()
 
         self._setup_data()
 
         # weights are drawn on the CPU, so a seed gives the same model on
         # every device; the transforms' draws come from a device generator
         model = net.init_model(torch.Generator().manual_seed(cfg.training.seed),
-                               cfg)
-        self.model = {**tree_map(lambda v: v.to(self.device), model),
-                      "ae": self._on_device(model["ae"]["params"],
-                                            model["ae"]["state"])}
+                               cfg, self.device)
+        self.model = {**model, "ae": self._on_device(**model["ae"])}
         self.generator = torch.Generator(self.device).manual_seed(
             cfg.training.seed + 1)
         self._save_freq = max(cfg.logging.save_model_frequency, 1)
+        self._gfv_path = self.checkpoint_dir / "gfv" / "gfvs_train.npz"
+        self.gfvs: Optional[Dict[str, np.ndarray]] = None
         self.train_losses: list = []  # every AE step's loss, in order
+        self.lgan_losses: list = []   # (G, D) loss of every LGAN epoch
+        # per RL iteration: the mean episode reward (float) and the last
+        # update's critic and actor losses (0-d tensors, read without a
+        # sync); and the greedy evals as (episode, reward, chamfer)
+        self.rl_history: list = []
+        self.rl_evals: list = []
 
     def _on_device(self, params, state) -> dict:
         return {"params": tree_map(lambda v: v.to(self.device)
@@ -191,15 +205,220 @@ class RLGANNetTrainer:
         return float(torch.stack(losses).mean())
 
     # ------------------------------------------------------------------
+    # phase 2: GFV extraction
+    # ------------------------------------------------------------------
+
+    def generate_gfvs(self) -> Dict[str, np.ndarray]:
+        """(clean, noisy) GFVs of the train split with the frozen encoder,
+        padded rows left out, saved to ``<checkpoint_dir>/gfv/
+        gfvs_train.npz`` (trainer.py:285-303)."""
+        print("\n=== PHASE 2: GFV extraction ===")
+        ae_m = self.model["ae"]
+        gen = torch.Generator(self.device).manual_seed(
+            self.config.training.seed + 1)
+        clean_all, noisy_all = [], []
+        for batch in self.train_loader:
+            pc = torch.from_numpy(batch["complete_pc"]).to(self.device)
+            draws = pc_ops.draw_training_batch(gen, pc.shape[0], pc.shape[1],
+                                               spec=self.preproc,
+                                               augment=False)
+            clean, noisy = steps.gfv_extract_step(
+                ae_m["params"], ae_m["state"], {"complete_pc": pc}, draws,
+                spec=self.preproc)
+            keep = batch["pad"] == 0
+            clean_all.append(clean.cpu().numpy()[keep])
+            noisy_all.append(noisy.cpu().numpy()[keep])
+        self.gfvs = {"clean": np.concatenate(clean_all),
+                     "noisy": np.concatenate(noisy_all)}
+        self._gfv_path.parent.mkdir(parents=True, exist_ok=True)
+        np.savez(self._gfv_path, **self.gfvs)
+        print(f"extracted {len(self.gfvs['clean'])} GFV pairs "
+              f"-> {self._gfv_path}")
+        return self.gfvs
+
+    def _load_gfvs(self) -> Dict[str, np.ndarray]:
+        """The GFVs in memory, else this run's file, else the legacy
+        ``<data_dir>/gfv/gfvs_train.npz``, else a fresh extraction
+        (trainer.py:305-319)."""
+        if self.gfvs is None:
+            legacy = Path(self.config.data.data_dir) / "gfv" / "gfvs_train.npz"
+            path = self._gfv_path if self._gfv_path.exists() else legacy
+            if path.exists():
+                loaded = np.load(path)
+                self.gfvs = {"clean": loaded["clean"],
+                             "noisy": loaded["noisy"]}
+            else:
+                self.generate_gfvs()
+        return self.gfvs
+
+    # ------------------------------------------------------------------
+    # phase 3: latent WGAN-GP
+    # ------------------------------------------------------------------
+
+    def train_latent_gan(self, num_epochs: Optional[int] = None) -> float:
+        """d_steps D updates (one fresh real batch each; at d_steps 1 an
+        epoch is one pass over the permuted GFVs) and one G update per
+        step; ``lgan_best`` by the lowest epoch G loss, as the reference
+        picks it (trainer.py:325-406)."""
+        cfg = self.config.training.lgan
+        num_epochs = num_epochs or cfg.epochs
+        print(f"\n=== PHASE 3: latent GAN ({num_epochs} epochs, "
+              f"d_steps={cfg.d_steps}) ===")
+        gfvs = torch.from_numpy(self._load_gfvs()["clean"]).to(self.device)
+        bs = cfg.batch_size or self.config.training.batch_size
+        m = self.config.model.lgan
+        params = self.model["lgan"]["params"]
+        state = self.model["lgan"]["state"]
+        for v in tree_leaves(params):
+            v.requires_grad_(True)
+        g_opt = steps.make_gan_optimizer(params["generator"],
+                                         cfg.generator_lr, cfg)
+        d_opt = steps.make_gan_optimizer(params["discriminator"],
+                                         cfg.discriminator_lr, cfg)
+        rng = np.random.RandomState(self.config.training.seed)
+        n = len(gfvs)
+        d_steps = max(cfg.d_steps, 1)
+        best_g = float("inf")
+        for epoch in range(num_epochs):
+            t0 = time.time()
+            order = rng.permutation(n)
+            g_losses, d_losses = [], []
+            for si in range(max(n // bs, 1)):
+                if d_steps == 1:
+                    idx = order[si * bs:(si + 1) * bs][None, :]
+                else:
+                    idx = rng.randint(0, n, size=(d_steps, bs))
+                real = gfvs[torch.from_numpy(idx).to(self.device)]
+                draws = steps.draw_lgan_combined(
+                    self.generator, real.shape[1], m.z_dim,
+                    m.discriminator_dims, d_steps)
+                state, sm = steps.lgan_combined_step(
+                    params, state, d_opt, g_opt, real, draws,
+                    lambda_gp=cfg.lambda_gp)
+                g_losses.append(sm["g_loss"])
+                d_losses.append(sm["d_loss"])
+            g_loss = float(torch.stack(g_losses).mean())
+            d_loss = float(torch.stack(d_losses).mean())
+            self.lgan_losses.append((g_loss, d_loss))
+            print(f"GAN epoch {epoch + 1}/{num_epochs} G {g_loss:.6f} "
+                  f"D {d_loss:.6f} ({time.time() - t0:.1f}s)")
+            self.model["lgan"] = {"params": params, "state": state}
+            if g_loss < best_g:
+                best_g = g_loss
+                self.save_checkpoint("lgan_best", epoch, "lgan")
+            if (epoch + 1) % self._save_freq == 0:
+                self.save_checkpoint(f"lgan_epoch_{epoch + 1}", epoch, "lgan")
+        self.save_checkpoint("lgan_final", num_epochs - 1, "lgan")
+        print(f"LGAN done; best G loss {best_g:.6f}")
+        return best_g
+
+    # ------------------------------------------------------------------
+    # phase 4: RL agent
+    # ------------------------------------------------------------------
+
+    def _eval_batch(self) -> Tuple[dict, dict]:
+        """The greedy eval's fixed batch: up to 64 val clouds spread evenly
+        over the split (it is sorted by path, so the first 64 would be one
+        category), and its fixed holes (trainer.py:436-460)."""
+        val = self.val_loader.dataset.as_array()
+        n_real = int(min(64, len(val)))
+        spread = np.linspace(0, len(val) - 1, n_real).astype(np.int64)
+        pc = torch.from_numpy(val[spread]).to(self.device)
+        draws = pc_ops.draw_training_batch(
+            torch.Generator(self.device).manual_seed(EVAL_HOLES_SEED),
+            n_real, pc.shape[1], spec=self.preproc, augment=False)
+        return ({"complete_pc": pc,
+                 "pad": torch.zeros(n_real, device=self.device)}, draws)
+
+    def train_rl_agent(self, num_episodes: Optional[int] = None) -> float:
+        """``num_episodes // envs`` iterations of ``steps.rl_step`` over
+        ``envs_per_step`` parallel environments of
+        min(steps_per_episode, max_steps_per_episode) steps; a greedy eval
+        on the fixed batch about 20 times; ``rl_agent_best`` by the mean
+        reward of the last 10 iterations (trainer.py:408-515)."""
+        cfg = self.config.training.rl_agent
+        num_episodes = num_episodes or cfg.episodes
+        envs = min(cfg.envs_per_step, self.config.training.batch_size)
+        iters = max(num_episodes // envs, 1)
+        n_steps = min(max(cfg.steps_per_episode, 1),
+                      cfg.max_steps_per_episode)
+        updates = max(cfg.updates_per_step, 1)
+        print(f"\n=== PHASE 4: RL agent ({num_episodes} episodes = "
+              f"{iters} x {envs} parallel envs) ===")
+        buffer = rb.ReplayBuffer(self.config.model.rl_agent.buffer_size,
+                                 self.td3.state_dim, self.td3.action_dim,
+                                 self.device)
+        ou = rl.ou_init(self.td3, (envs,), self.device)
+        data = self._resident_train_data()
+        rng = np.random.RandomState(self.config.training.seed)
+        loss_cfg = self.config.loss
+        weights = dict(w_chamfer=loss_cfg.w_chamfer, w_gfv=loss_cfg.w_gfv,
+                       w_discriminator=loss_cfg.w_discriminator)
+        eval_batch, eval_draws = self._eval_batch()
+        eval_every = max(1, iters // 20)
+        best_avg = float("-inf")
+        rewards = []
+
+        def log_eval(episode):
+            m = steps.rl_eval_reward(self.model, eval_batch, eval_draws,
+                                     cfg=self.td3, spec=self.preproc,
+                                     **weights)
+            r, cd = float(m["reward"]), float(m["chamfer"])
+            self.rl_evals.append((episode, r, cd))
+            print(f"  eval reward (greedy, fixed batch) @ep {episode}: "
+                  f"{r:.4f}  chamfer {cd:.4f}")
+
+        log_eval(0)
+        for it in range(iters):
+            idx = torch.from_numpy(rng.randint(0, len(data), size=envs))
+            batch = {"complete_pc": data[idx.to(self.device)],
+                     "pad": torch.zeros(envs, device=self.device)}
+            draws = steps.draw_rl_step(
+                self.generator, envs, data.shape[1], cfg=self.td3,
+                buffer_size=min(buffer.size + envs * n_steps,
+                                buffer.capacity),
+                steps_per_episode=n_steps, updates_per_step=updates,
+                spec=self.preproc)
+            self.model, buffer, ou, m = steps.rl_step(
+                self.model, buffer, ou, batch, draws, cfg=self.td3,
+                start_training_size=cfg.start_training_steps,
+                steps_per_episode=n_steps, updates_per_step=updates,
+                spec=self.preproc, **weights)
+            rewards.append(float(m["reward"]))
+            self.rl_history.append({"reward": rewards[-1],
+                                    "critic_loss": m["critic_loss"],
+                                    "actor_loss": m["actor_loss"]})
+            episode = (it + 1) * envs
+            if (it + 1) % eval_every == 0 or it == iters - 1:
+                log_eval(episode)
+            if it % 10 == 0 or it == iters - 1:
+                avg = float(np.mean(rewards[-10:]))
+                print(f"RL iter {it + 1}/{iters} (episode {episode}) "
+                      f"reward {rewards[-1]:.4f} avg {avg:.4f} critic "
+                      f"{float(m['critic_loss']):.4f} actor "
+                      f"{float(m['actor_loss']):.4f}")
+                if avg > best_avg:
+                    best_avg = avg
+                    self.save_checkpoint("rl_agent_best", episode,
+                                         "rl_agent")
+            if (it + 1) % self._save_freq == 0:
+                self.save_checkpoint(f"rl_agent_episode_{episode}", episode,
+                                     "rl_agent")
+        self.save_checkpoint("rl_agent_final", num_episodes, "rl_agent")
+        print(f"RL done; best avg reward {best_avg:.4f}")
+        return best_avg
+
+    # ------------------------------------------------------------------
     # checkpoints
     # ------------------------------------------------------------------
 
     def save_checkpoint(self, name: str, epoch: int, phase: str) -> None:
-        """{"model": {"ae", "lgan", "agent": {"actor"}}, "meta": {"epoch",
+        """{"model": {"ae", "lgan", "agent"}, "meta": {"epoch",
         "phase_idx"}} as a pickle of numpy arrays, the JAX trainer's layout
-        (trainer.py:735-778 with use_orbax=False); a ``gan_path`` snapshot
-        goes to the ``<name>_ganpath`` sibling, and a stale sibling is
-        removed."""
+        (trainer.py:735-778 with use_orbax=False): the agent whole, with
+        its targets, step and Adam moments (``convert.agent_to_numpy``). A
+        ``gan_path`` snapshot goes to the ``<name>_ganpath`` sibling, and a
+        stale sibling is removed."""
         path = self.checkpoint_dir / name
         model = dict(self.model)
         gan_path = model.pop("gan_path", None)
@@ -214,15 +433,17 @@ class RLGANNetTrainer:
             sibling.unlink()
 
     def load_checkpoint(self, name: str) -> Tuple[int, str]:
-        """Restore the serving model (``ae``, ``lgan``, ``agent.actor`` and
-        the ``<name>_ganpath`` sibling when there is one) from a pickle
-        checkpoint of this package or the JAX package; the agent's critics,
-        targets and optimizer state are not ported yet and are left out."""
+        """Restore the model (``ae``, ``lgan``, the agent and the
+        ``<name>_ganpath`` sibling when there is one) from a pickle
+        checkpoint of this package or the JAX package. The agent comes back
+        whole: networks, targets, step and Adam moments."""
         model, meta = ckpt_lib.load_model_checkpoint(str(self.checkpoint_dir),
                                                      name)
         cpu = torch.device("cpu")
         a = model["ae"]
         self.model = {**model_from_numpy(model, device=self.device),
+                      "agent": agent_from_numpy(model["agent"], self.td3,
+                                                device=self.device),
                       "ae": self._on_device(tree_from_numpy(a["params"], cpu),
                                             tree_from_numpy(a["state"], cpu))}
         epoch = int(meta["epoch"])

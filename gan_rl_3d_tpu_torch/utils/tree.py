@@ -28,3 +28,21 @@ def tree_leaves(tree: Any) -> List[Any]:
     if tree is None:
         return []
     return [tree]
+
+
+def tree_unflatten(like: Any, leaves: List[Any]) -> Any:
+    """A tree of ``like``'s structure holding ``leaves`` in tree_leaves
+    order."""
+    it = iter(leaves)
+
+    def build(tree):
+        if isinstance(tree, dict):
+            built = {k: build(tree[k]) for k in sorted(tree)}
+            return {k: built[k] for k in tree}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(build(v) for v in tree)
+        if tree is None:
+            return None
+        return next(it)
+
+    return build(like)

@@ -182,7 +182,7 @@ def test_cli_trains_phase_one_and_jax_reads_the_checkpoint(tmp_path):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("phase", ["lgan", "rl_agent", "joint", "full"])
+@pytest.mark.parametrize("phase", ["joint", "full"])
 def test_cli_refuses_phases_not_ported(phase):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         train_main(["--phase", phase, "--device", "cpu"])

@@ -593,3 +593,113 @@ def test_bf16_engine_file_loads_on_card(cuda, tmp_path):
     assert _cuda.launch_counts["encoder_pool_bf16"] == before + 2
     for k in ref:
         assert torch.equal(out[k], ref[k]), k
+
+
+def _rl_model(device, seed=3):
+    """The flagship model with fresh weights on ``device`` and a copy on
+    the CPU."""
+    from gan_rl_3d_tpu_torch.models import rl_gan_net as net
+
+    cfg = chip_smoke._flagship()
+    model = net.init_model(torch.Generator().manual_seed(seed), cfg, device)
+    td3 = cfg.td3_config()
+    copy = {**{k: chip_smoke._on(model[k], torch.device("cpu"))
+               for k in ("ae", "lgan")},
+            "agent": chip_smoke._agent_copy(model["agent"],
+                                            torch.device("cpu"), td3)}
+    return cfg, td3, model, copy
+
+
+@pytest.mark.cuda
+def test_reward_chamfer_launches_k3(cuda):
+    """The RL reward's Chamfer distance runs K3 (twice: both directions)
+    and agrees with the CPU's plain version."""
+    from gan_rl_3d_tpu_torch.models import rl_gan_net as net
+
+    cfg, _, model, copy = _rl_model(cuda)
+    pc, _ = _clouds(8, 2048, 30)
+    gfv = torch.tanh(torch.randn(8, 128,
+                                 generator=torch.Generator().manual_seed(1)))
+    pred = pc + 0.05
+    before = _cuda.launch_counts["nn_dist"]
+    r = net.compute_reward(model, pred.to(cuda), pc.to(cuda), gfv.to(cuda),
+                           (0.9 * gfv).to(cuda))
+    assert _cuda.launch_counts["nn_dist"] == before + 2
+    ref = net.compute_reward(copy, pred, pc, gfv, 0.9 * gfv)
+    assert chip_smoke.rel_err(r.cpu(), ref) <= chip_smoke.TOL_RL_LOSS
+    assert not r.requires_grad
+
+
+@pytest.mark.cuda
+def test_lgan_combined_step_on_card_matches_cpu(cuda):
+    """One combined step on the card and on the CPU from the same weights
+    and Adam moments one step old (chip_smoke.lgan_warm): losses, each
+    network's update, its state; lr 0 on the card fails the update
+    check."""
+    cfg, _, _, copy = _rl_model(cuda, seed=4)
+    lc, m = cfg.training.lgan, cfg.model.lgan
+    real = [torch.tanh(torch.randn(
+        lc.d_steps, lc.batch_size, m.latent_dim,
+        generator=torch.Generator().manual_seed(seed))) for seed in (5, 6)]
+    warm = chip_smoke.lgan_warm(copy["lgan"], cfg, real[0], seed=7)
+    draws = chip_smoke.lgan_draws(cfg, seed=8)
+    (sm, card), (ref_m, ref) = (
+        chip_smoke.lgan_step_on(dev, warm, cfg, real[1], draws)
+        for dev in (cuda, torch.device("cpu")))
+    for k in ("d_loss", "g_loss"):
+        assert chip_smoke._rel(sm[k], ref_m[k]) <= chip_smoke.TOL_RL_LOSS, (
+            k, float(sm[k]), float(ref_m[k]))
+    _, frozen = chip_smoke.lgan_step_on(cuda, warm, cfg, real[1], draws,
+                                        lr_scale=0.0)
+    for k in card:
+        start = {part: warm[0][part][k] for part in ("params", "state")}
+        update, state, worst, noise = chip_smoke.network_errs(
+            card[k], ref[k], start)
+        assert update <= chip_smoke.TOL_RL_UPDATE, (k, update)
+        assert state <= chip_smoke.TOL_RL_PARAM, (k, state, worst)
+        assert noise <= 2 * lc.generator_lr * lc.d_steps, (k, noise)
+        assert chip_smoke.network_errs(frozen[k], ref[k], start)[0] > \
+            chip_smoke.TOL_RL_UPDATE, k
+
+
+@pytest.mark.cuda
+def test_rl_step_on_card_matches_cpu(cuda):
+    """One rl_step of 8 environments and 4 TD3 updates on the card and on
+    CPU copies with the same draws: rewards, buffer rows, OU state, agent;
+    K3 launches in the reward."""
+    from gan_rl_3d_tpu_torch.models import rl_agent as rl
+    from gan_rl_3d_tpu_torch.train import replay_buffer as rb
+    from gan_rl_3d_tpu_torch.train import steps
+
+    cfg, td3, model, copy = _rl_model(cuda, seed=7)
+    envs, updates, prefill = 8, 4, td3.batch_size
+    pc, _ = _clouds(envs, 2048, 31)
+    pre = chip_smoke.random_transitions(prefill, td3, 8, "cpu")
+    draws = steps.draw_rl_step(torch.Generator().manual_seed(9), envs, 2048,
+                               cfg=td3, buffer_size=prefill + envs,
+                               updates_per_step=updates)
+    out = []
+    start = chip_smoke._agent_copy(copy["agent"], torch.device("cpu"), td3)
+    for dev, src in ((cuda, model), (torch.device("cpu"), copy)):
+        buf = rb.ReplayBuffer(1000, td3.state_dim, td3.action_dim, dev)
+        buf.add_batch(rl.TransitionBatch(*(v.to(dev) for v in pre)))
+        before = _cuda.launch_counts["nn_dist"]
+        src, buf, ou, sm = steps.rl_step(
+            src, buf, rl.ou_init(td3, (envs,), dev),
+            {"complete_pc": pc.to(dev), "pad": torch.zeros(envs,
+                                                           device=dev)},
+            chip_smoke._on(draws, dev), cfg=td3, start_training_size=prefill,
+            updates_per_step=updates)
+        launched = _cuda.launch_counts["nn_dist"] - before
+        out.append((src, buf, ou, sm, launched))
+    (card, buf, ou, sm, launched), (ref, rbuf, rou, rsm, rlaunched) = out
+    assert launched == 2 and rlaunched == 0
+    for k in ("reward", "critic_loss", "actor_loss"):
+        assert chip_smoke._rel(sm[k], rsm[k]) <= chip_smoke.TOL_RL_LOSS, k
+    for name in rb.FIELDS:
+        assert chip_smoke.scaled_err(getattr(buf, name).cpu(),
+                                     getattr(rbuf, name)) <= \
+            chip_smoke.TOL_RL_PARAM
+    assert chip_smoke.scaled_err(ou.cpu(), rou) <= chip_smoke.TOL_RL_PARAM
+    chip_smoke._check_agents("rl_step", card["agent"], ref["agent"], start,
+                             updates, td3.critic_lr)

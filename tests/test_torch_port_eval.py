@@ -114,7 +114,7 @@ def test_checkpoint_reader_refuses_other_classes_and_orbax(tmp_path):
 
 
 def test_trainer_restores_and_writes_the_serving_model(run_dir, tmp_path):
-    """load_checkpoint restores ae, lgan, agent.actor and the snapshot;
+    """load_checkpoint restores ae, lgan, the agent and the snapshot;
     save_checkpoint writes them in the JAX layout, the snapshot as a
     sibling that the JAX package reads."""
     root, tree = run_dir
@@ -122,7 +122,7 @@ def test_trainer_restores_and_writes_the_serving_model(run_dir, tmp_path):
     trainer = RLGANNetTrainer(cfg, device="cpu")
     fresh = trainer.model
     assert set(fresh) == {"ae", "lgan", "agent"}
-    assert set(fresh["agent"]) == {"actor"}
+    assert set(fresh["agent"]) == set(tree["agent"])
     assert (trainer.load_checkpoint("jax_full")) == (7, "joint")
     w = trainer.model["lgan"]["params"]["generator"]["mlp"][0]["dense"]["w"]
     np.testing.assert_array_equal(

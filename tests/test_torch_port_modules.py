@@ -224,13 +224,14 @@ def test_latent_gan_matches_jax(spectral_norm):
     ts = jax.tree.map(t, s)
     z = rng.randn(4, cfg.z_dim).astype(np.float32)
     ref, _ = jlg.generator_apply(p["generator"], s["generator"], z)
-    close(tlg.generator_apply(tp["generator"], ts["generator"], t(z)), ref, 1e-5)
+    close(tlg.generator_apply(tp["generator"], ts["generator"], t(z))[0], ref,
+          1e-5)
     gfv = np.tanh(rng.randn(4, cfg.latent_dim)).astype(np.float32)
     ref, _ = jlg.discriminator_apply(p["discriminator"], s["discriminator"],
                                      gfv)
     # scores reach ~30: f32 rounding is relative
     close(tlg.discriminator_apply(tp["discriminator"], ts["discriminator"],
-                                  t(gfv)), ref, 1e-5, rtol=1e-5)
+                                  t(gfv))[0], ref, 1e-5, rtol=1e-5)
 
 
 def test_select_action_matches_jax_with_shared_noise(small):
