@@ -55,7 +55,21 @@ Phases, each failing the run if it fails:
      then one ``lgan_combined_step``, one ``agent_update`` and one
      ``rl_step`` (64 updates) on the card against the same on CPU copies,
      with the same draws;
-  6. times: each kernel (every instance of K1 and K6 at the flagship
+  6. phases 5 and 5.5 at full width from ``rl_agent_final``, through the
+     trainer as ``--phase joint`` drives it: the recipe's joint block
+     (bf16_selective, B=64, lr 1e-4, weight decay 1e-5, w_ae_recon 1)
+     cut to 1 epoch of 2 steps, then the D refresh (16 steps, the
+     recipe's 400) and the gate calibration on the val split; finite
+     losses, ``joint_best``, ``joint_calibrated`` and the sidecar scoped
+     to them and ``final``, the calibrated gate no worse than a fixed one,
+     only D changed by the refresh; then the default command
+     ``train_rl_gan_net --phase full --resume rl_agent_final`` (phases
+     1-3 skipped, ``final`` written) and the calibrated ``final`` served
+     by ``evaluate --export-engine`` and ``complete_clouds --checkpoint``
+     / ``--engine``, each printing and using the sidecar's gate; K1-K5
+     must launch on this path; then one f32 ``joint_train_step`` at B=8
+     and one ``gate_stats_step`` on the card against CPU copies;
+  7. times: each kernel (every instance of K1 and K6 at the flagship
      widths), its plain version, the least time the card could take
      (bound) and a library yardstick (registers a thread and shared memory
      beside their times; K3 and K2 also as CUDA-graph device time, with
@@ -65,7 +79,10 @@ Phases, each failing the run if it fails:
      ``ae_train_step`` at B=64 in f32 and bf16_selective, with a
      torch.profiler trace of the step (device busy time, idle share,
      launches, top kernels); the same for ``lgan_combined_step``,
-     ``agent_update`` and ``rl_step``, with K3's share of the RL step.
+     ``agent_update`` and ``rl_step``, with K3's share of the RL step;
+     per ``joint_train_step`` at B=64 in f32 and bf16_selective with its
+     trace and K3/K4/K5's share, per D refresh step, per
+     ``gate_stats_step`` batch.
 
 The next-to-last line is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}. Any failure raises and exits
@@ -74,6 +91,8 @@ non-zero. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import re
 import subprocess
@@ -152,6 +171,17 @@ TRACE_TOP = 12      # kernels listed by their device time
 # held to 2 lr an update, absolute (tests/test_torch_port_rl.py and
 # tests/test_torch_port_lgan.py measure this against JAX).
 TOL_RL_LOSS = 1e-4
+TOL_GATE_MARGIN = 1e-5  # D(clean) - D(noisy), of the largest margin
+# one joint step (B=8), each network's update card vs CPU in the 2-norm:
+# not TOL_RL_UPDATE. The step is conditioned worse than the phase 3-4
+# steps: the decoder's training BatchNorm divides by the spread of G's
+# outputs over 8 rows, the max-pool and the Chamfer loss pick one point
+# each, and Adam divides each element by its own RMS, so the CPU's own
+# update moves by about 1e-2 when the input clouds are scaled by 1 + 1e-7
+# (joint_checks prints this floor each run: 6.8e-3, 1.36e-2, 1.29e-2 on
+# an H100 80GB HBM3 at 700 W, against the card's 8.8e-3, 1.79e-2,
+# 1.57e-2). A step with lr 0 or twice the lr reads 1.
+TOL_JOINT_UPDATE = 5e-2
 TOL_RL_UPDATE = 1e-2
 TOL_RL_PARAM = 2e-3
 RL_ITERS = 6        # iterations of train_rl_agent: 256 transitions at the
@@ -159,6 +189,13 @@ RL_ITERS = 6        # iterations of train_rl_agent: 256 transitions at the
 RL_WARMUP, RL_RAMP = 96, 24  # the recipe's 2000 / 1500, cut to the run
 RL_PREFILL = 256    # buffer rows before the rl_step checked and timed
 TRACE_RL = 2        # rl_steps traced (64 updates each)
+# phases 5 and 5.5 at the shipped recipe's joint block (bf16_selective,
+# B=64, lr 1e-4, weight decay 1e-5, w_ae_recon 1, calibrate_gate), cut to
+# the run: 1 epoch (the recipe's 4) of 2 steps on the 128 synthetic train
+# clouds, and 16 D refresh steps (the recipe's 400)
+JOINT_EPOCHS = 1
+JOINT_REFRESH = 16
+TRACE_JOINT = 5     # joint_train_steps traced per precision
 
 
 # ---------------------------------------------------------------------------
@@ -1586,6 +1623,355 @@ def random_transitions(n, td3, seed, device):
         dones=torch.ones(n, 1))
     return rl.TransitionBatch(*(v.to(device) for v in batch))
 
+
+# ---------------------------------------------------------------------------
+# phases 5 and 5.5: the joint fine-tune, the D refresh, the gate
+# ---------------------------------------------------------------------------
+
+
+def _joint_config(cfg, tmp: Path):
+    """The recipe's joint block cut to the run (JOINT_EPOCHS,
+    JOINT_REFRESH); evaluate's report under ``tmp``."""
+    import dataclasses
+
+    t = cfg.training
+    return dataclasses.replace(cfg, training=dataclasses.replace(
+        t, results_dir=str(tmp / "results_joint"),
+        joint=dataclasses.replace(t.joint, epochs=JOINT_EPOCHS,
+                                  refresh_d_steps=JOINT_REFRESH)))
+
+
+class _Tee(io.StringIO):
+    """Standard output kept as well as printed."""
+
+    def __init__(self, out):
+        super().__init__()
+        self.out = out
+
+    def write(self, text):
+        self.out.write(text)
+        return super().write(text)
+
+
+def captured(fn, *args):
+    """(fn(*args), what it printed)."""
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        result = fn(*args)
+    return result, tee.getvalue()
+
+
+def _rewritten(folder: Path, names, fn):
+    """Run ``fn`` after dating the files ``names`` back to 2001: the set of
+    those it rewrote."""
+    import os
+
+    old = 10 ** 18
+    for n in names:
+        os.utime(folder / n, ns=(old, old))
+    fn()
+    return {n for n in names if os.stat(folder / n).st_mtime_ns != old}
+
+
+def phase_joint(device, cfg, tmp: Path):
+    """Phases 5 and 5.5 at full width from phase 4's ``rl_agent_final``,
+    counted launch by launch as one path: the trainer as ``--phase joint``
+    drives it (``joint_training``, then ``post_joint_refresh``), then the
+    default command (``--phase full --resume rl_agent_final``), then the
+    calibrated ``final`` served (``evaluate --checkpoint final
+    --export-engine``, ``complete_clouds --checkpoint final`` and
+    ``--engine``)."""
+    import dataclasses
+
+    from gan_rl_3d_tpu_torch import complete_clouds, evaluate
+    from gan_rl_3d_tpu_torch import train_rl_gan_net
+    from gan_rl_3d_tpu_torch.config import load_config
+    from gan_rl_3d_tpu_torch.convert import model_from_numpy
+    from gan_rl_3d_tpu_torch.data.dataset import load_ply
+    from gan_rl_3d_tpu_torch.models import rl_gan_net as net
+    from gan_rl_3d_tpu_torch.ops import _cuda
+    from gan_rl_3d_tpu_torch.train import gate as gate_lib
+    from gan_rl_3d_tpu_torch.train.trainer import RLGANNetTrainer
+    from gan_rl_3d_tpu_torch.utils import checkpoint as ckpt_lib
+
+    cfg = _joint_config(cfg, tmp)
+    jc = cfg.training.joint
+    ckpt = Path(cfg.training.checkpoint_dir)
+    cfg_path = tmp / "joint.json"
+    cfg_path.write_text(json.dumps(dataclasses.asdict(cfg)))
+    expect(load_config(str(cfg_path)) == cfg, "config JSON round trip")
+    trainer = RLGANNetTrainer(cfg, device=device)
+    trainer.load_checkpoint("rl_agent_final")
+    torch.cuda.synchronize()
+    _cuda.launch_counts.clear()
+    t0 = time.perf_counter()
+    best = trainer.joint_training()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n_steps = len(trainer.train_loader) * JOINT_EPOCHS
+    print(f"joint_training: {JOINT_EPOCHS} epoch of {n_steps} steps at "
+          f"B={cfg.training.batch_size} ({cfg.training.precision}, lr "
+          f"{jc.lr:g}, wd {jc.weight_decay:g}, w_ae_recon {jc.w_ae_recon:g}) "
+          f"in {dt:.2f}s with validation; (train, val) losses "
+          f"{trainer.joint_losses}, best val {best:.6f}")
+    expect(len(trainer.joint_losses) == JOINT_EPOCHS
+           and np.isfinite(trainer.joint_losses).all() and np.isfinite(best),
+           "non-finite or missing joint loss")
+    t0 = time.perf_counter()
+    trainer.post_joint_refresh()
+    torch.cuda.synchronize()
+    report = trainer.gate_report
+    d_losses = trainer.refresh_d_losses
+    print(f"post_joint_refresh: {len(d_losses)} D refresh steps (loss "
+          f"{d_losses[0]:.4f} -> {d_losses[-1]:.4f}) and the gate "
+          f"calibration in {time.perf_counter() - t0:.2f}s; report {report}")
+    expect(len(d_losses) == JOINT_REFRESH and np.isfinite(d_losses).all(),
+           "non-finite or missing D refresh loss")
+    for name in ("joint_best", "joint_calibrated", gate_lib.GATE_FILE):
+        expect((ckpt / name).is_file(), f"{name} was not written")
+    sidecar = json.loads((ckpt / gate_lib.GATE_FILE).read_text())
+    expect(sidecar == report and report["checkpoints"]
+           == ["joint_calibrated", "final"], f"gate sidecar {sidecar}")
+    expect(report["val_chamfer_calibrated"] <= min(
+        report["val_chamfer_raw_gate"], report["val_chamfer_rl"],
+        report["val_chamfer_ae"]), "the calibrated gate is worse than a "
+        "fixed one")
+    _refresh_changed_only_d(ckpt_lib, ckpt)
+
+    # the default command: the JAX trainer's rule restarts at the phase the
+    # checkpoint records (phase 4 for rl_agent_final), so phases 1-3 are
+    # skipped and phase 4 runs again before phases 5 and 5.5
+    before = sorted(p.name for p in ckpt.iterdir() if p.is_file()
+                    and p.name.startswith(("autoencoder", "lgan", "rl_agent",
+                                           "joint", "final")))
+    t0 = time.perf_counter()
+    written = _rewritten(ckpt, before, lambda: train_rl_gan_net.main(
+        ["--config", str(cfg_path), "--phase", "full", "--resume",
+         "rl_agent_final", "--device", device.type]))
+    print(f"train_rl_gan_net --phase full --resume rl_agent_final in "
+          f"{time.perf_counter() - t0:.2f}s rewrote {sorted(written)} of "
+          f"{before}")
+    expect(not any(n.startswith(("autoencoder", "lgan")) for n in written),
+           "--phase full --resume rl_agent_final reran phases 1-3")
+    expect({"rl_agent_final", "joint_best", "joint_calibrated"} <= written
+           and (ckpt / "final").is_file(), "--phase full --resume "
+           "rl_agent_final did not run phases 4-5.5 and write final")
+    report = json.loads((ckpt / gate_lib.GATE_FILE).read_text())
+    expect(report["checkpoints"] == ["joint_calibrated", "final"],
+           f"gate sidecar after the full run: {report}")
+
+    # serving the calibrated final
+    gate = (report["gate_mode"], report["gate_bias"])
+    calibrated = gate != (cfg.model.gate_mode, cfg.model.gate_bias)
+    line = f"using calibrated gate: mode={gate[0]} bias={gate[1]:.4f}"
+    engine_path = tmp / "engine_final.pkl"
+    inputs = write_scans(tmp / "scans_joint", seed=8)
+    t0 = time.perf_counter()
+    stats, out = captured(evaluate.main, [
+        "--config", str(cfg_path), "--checkpoint", "final", "--num-export",
+        "2", "--export-engine", str(engine_path), "--device", device.type])
+    expect(len(stats) >= 5 and all(np.isfinite(v) for v in stats.values()),
+           f"evaluate --checkpoint final: non-finite or missing {stats}")
+    expect((line in out) == calibrated, f"evaluate did not report the "
+           f"calibrated gate {gate}")
+    print(f"evaluate --checkpoint final in {time.perf_counter() - t0:.2f}s "
+          f"with the gate {gate}: " + ", ".join(
+              f"{k}={v:.6f}" for k, v in stats.items()))
+    for args in (["--checkpoint", "final"], ["--engine", str(engine_path)]):
+        _, out = captured(serve_files, inputs,
+                          tmp / f"out_joint_{args[0][2:]}",
+                          [*args, "--config", str(cfg_path), "--device",
+                           device.type], N_MAIN)
+        expect((line in out) == calibrated, f"complete_clouds {args[0]} "
+               f"did not report the calibrated gate {gate}")
+    # used, not only printed: the checkpoint's completion of the first scan
+    # is complete() with the sidecar's gate, in the scan's frame
+    tree, _ = ckpt_lib.load_model_checkpoint(str(ckpt), "final")
+    pc, mask, (centroid, scale) = complete_clouds._load_framed(
+        str(inputs[0]), N_MAIN, np.random.RandomState(0))
+    ref = net.complete(model_from_numpy(tree, device=device),
+                       torch.from_numpy(pc[None]).to(device),
+                       torch.from_numpy(mask[None]).to(device),
+                       cfg=cfg.td3_config(), gate_mode=gate[0],
+                       gate_bias=gate[1])["hybrid_output"][0].cpu().numpy()
+    served = load_ply(tmp / "out_joint_checkpoint"
+                      / f"{inputs[0].stem}_completed.ply")
+    err = float(np.abs(served - (ref * scale + centroid)).max()) / scale
+    print(f"complete_clouds --checkpoint final and --engine served "
+          f"{len(inputs)} files each; the first against complete() with the "
+          f"sidecar's gate: {err:.3e} (tol {TOL_F32:g})")
+    expect(err <= TOL_F32, "complete_clouds --checkpoint final did not use "
+           "the calibrated gate")
+    torch.cuda.synchronize()
+    counts = dict(_cuda.launch_counts)
+    print(f"joint-path launches (phases 5-5.5, --phase full, serving final): "
+          f"{counts}")
+    for name in JOINT_KERNELS:
+        expect(counts.get(name, 0) > 0, f"{name} never launched on the "
+               "joint path")
+    return counts, trainer
+
+
+def _refresh_changed_only_d(ckpt_lib, ckpt: Path) -> None:
+    """``joint_calibrated`` against ``joint_best``: the refresh changed D
+    (its weights and spectral-norm vectors) and nothing else, but the
+    generator's BN running statistics, which the D steps' training-mode
+    generator advances (the JAX refresh keeps them too)."""
+    best, _ = ckpt_lib.load_model_checkpoint(str(ckpt), "joint_best")
+    cal, _ = ckpt_lib.load_model_checkpoint(str(ckpt), "joint_calibrated")
+    changed = sorted(".".join(map(str, p)) for (p, a), (_, b) in zip(
+        _named_leaves(best), _named_leaves(cal))
+        if not np.array_equal(np.asarray(a), np.asarray(b)))
+    allowed = ("lgan.params.discriminator.", "lgan.state.discriminator.",
+               "lgan.state.generator.")
+    print(f"D refresh: {len(changed)} leaves changed, "
+          f"{sum(c.startswith(allowed[0]) for c in changed)} of them D's "
+          "weights")
+    expect(all(c.startswith(allowed) for c in changed)
+           and any(c.startswith(allowed[0]) for c in changed),
+           f"the D refresh changed more than D: {changed}")
+
+
+def _joint_model(model, dev):
+    """A copy of what the joint step reads (ae, lgan, the actor) on
+    ``dev``, its ae and lgan parameters taking a gradient."""
+    out = {k: {"params": _on(model[k]["params"], dev, grad=True),
+               "state": _on(model[k]["state"], dev)} for k in ("ae", "lgan")}
+    out["agent"] = {"actor": _on(model["agent"]["actor"], dev)}
+    return out
+
+
+def _joint_networks(model):
+    """{"encoder", "decoder", "generator"}, each {"params", "state"}."""
+    ae, lgan = model["ae"], model["lgan"]
+    return {"encoder": {p: ae[p]["encoder"] for p in ("params", "state")},
+            "decoder": {p: ae[p]["decoder"] for p in ("params", "state")},
+            "generator": {p: lgan[p]["generator"]
+                          for p in ("params", "state")}}
+
+
+def _joint_kw(trainer, precision="float32"):
+    from gan_rl_3d_tpu_torch.train import steps
+    jc = trainer.config.training.joint
+    dtype, selective = steps.compute_dtype_of(precision)
+    return dict(cfg=trainer.td3, compute_dtype=dtype, selective=selective,
+                spec=trainer.preproc, bidirectional=trainer.bidirectional,
+                w_ae_recon=jc.w_ae_recon, bn_stats=trainer.bn_stats,
+                freeze_generator=jc.freeze_generator)
+
+
+def joint_batch(trainer, seed, bsz=B_STEP_CHECK):
+    """A batch of ``bsz`` full-width clouds and its draws (holes and
+    augmentation), on the CPU."""
+    from gan_rl_3d_tpu_torch.ops import pointcloud as pc_ops
+    pc, _ = make_clouds(bsz, N_MAIN, seed=seed, device=torch.device("cpu"))
+    draws = pc_ops.draw_training_batch(torch.Generator().manual_seed(seed),
+                                       bsz, N_MAIN, spec=trainer.preproc)
+    return {"complete_pc": pc, "pad": torch.zeros(bsz)}, draws
+
+
+def joint_warm(trainer, seed):
+    """The joint model on the CPU after one f32 ``joint_train_step`` from
+    the trainer's, and its Adam's state: moments one step old (a fresh
+    Adam's first step is lr x sign(gradient), see lgan_warm)."""
+    from gan_rl_3d_tpu_torch.train import steps
+    cpu = torch.device("cpu")
+    jc = trainer.config.training.joint
+    model = _joint_model(trainer.model, cpu)
+    opt = steps.make_joint_optimizer(
+        steps.joint_trainable(model, jc.freeze_generator), jc)
+    model, _ = steps.joint_train_step(model, opt, *joint_batch(trainer, seed),
+                                      **_joint_kw(trainer))
+    return model, opt.state_dict()
+
+
+def joint_step_on(dev, warm, trainer, batch, draws, lr_scale=1.0):
+    """One f32 ``joint_train_step`` on ``dev`` from ``joint_warm``'s model
+    and Adam state, lr times ``lr_scale``: (metrics, _joint_networks)."""
+    import copy
+
+    from gan_rl_3d_tpu_torch.train import steps
+    jc = trainer.config.training.joint
+    model = _joint_model(warm[0], dev)
+    opt = steps.make_joint_optimizer(
+        steps.joint_trainable(model, jc.freeze_generator), jc)
+    opt.load_state_dict(copy.deepcopy(warm[1]))
+    for group in opt.param_groups:
+        group["lr"] = jc.lr * lr_scale
+    model, m = steps.joint_train_step(model, opt, _on(batch, dev),
+                                      _on(draws, dev), **_joint_kw(trainer))
+    return m, _joint_networks(model)
+
+
+def joint_checks(device, trainer):
+    """One f32 ``joint_train_step`` at B=8, full width, on the card and on
+    CPU copies from the same weights, draws and Adam moments one step old:
+    the loss, each network's update, its state; lr 0 on the card must fail
+    the update check. Then ``gate_stats_step`` on a val batch, card
+    against CPU."""
+    from gan_rl_3d_tpu_torch.train import gate as gate_lib
+    from gan_rl_3d_tpu_torch.train import trainer as trainer_lib
+
+    cpu = torch.device("cpu")
+    jc = trainer.config.training.joint
+    warm = joint_warm(trainer, seed=60)
+    start = _joint_networks(warm[0])
+    batch, draws = joint_batch(trainer, seed=61)
+    (sm, card), (ref_m, ref) = (joint_step_on(dev, warm, trainer, batch,
+                                              draws) for dev in (device, cpu))
+    le = {k: _rel(sm[k], ref_m[k]) for k in ("loss", "chamfer", "gfv")}
+    errs = {k: network_errs(card[k], ref[k], start[k]) for k in card}
+    tol_noise = 2 * jc.lr
+    print(f"joint_train_step f32 B={B_STEP_CHECK}: card vs CPU, " + ", ".join(
+        f"{k} {float(sm[k]):.6f} / {float(ref_m[k]):.6f} ({e:.3e})"
+        for k, e in le.items()) + f" (tol {TOL_RL_LOSS:g} of max(1, "
+        f"|value|)); {_errs_text(errs)} (update tol {TOL_JOINT_UPDATE:g} of "
+        f"the CPU's, state tol {TOL_RL_PARAM:g} of each leaf's largest "
+        f"element, Adam-noise leaves {tol_noise:g} absolute)")
+    shifted = dict(batch, complete_pc=batch["complete_pc"] * (1.0 + 1e-7))
+    _, floor = joint_step_on(cpu, warm, trainer, shifted, draws)
+    print("joint_train_step CPU against itself with the input clouds scaled "
+          "by 1 + 1e-7: update error " + ", ".join(
+              f"{k} {network_errs(floor[k], ref[k], start[k])[0]:.3e}"
+              for k in ref))
+    expect(max(le.values()) <= TOL_RL_LOSS and all(
+        u <= TOL_JOINT_UPDATE and s <= TOL_RL_PARAM and z <= tol_noise
+        for u, s, _, z in errs.values()),
+        "joint_train_step: the card disagrees with the CPU")
+    for scale in (0.0, 2.0):
+        _, wrong = joint_step_on(device, warm, trainer, batch, draws,
+                                 lr_scale=scale)
+        power = {k: network_errs(wrong[k], ref[k], start[k])[0]
+                 for k in card}
+        print(f"joint_train_step with lr x {scale:g} on the card: update "
+              "error " + ", ".join(f"{k} {e:.3e}" for k, e in power.items())
+              + f" (must exceed {TOL_JOINT_UPDATE:g})")
+        expect(min(power.values()) > TOL_JOINT_UPDATE, "joint_train_step: "
+               f"the update check passes a step with lr x {scale:g}")
+
+    vb = next(iter(trainer.val_loader))
+    vbatch = {"complete_pc": torch.from_numpy(vb["complete_pc"]),
+              "pad": torch.from_numpy(vb["pad"])}
+    vdraws = _on(trainer._fixed_holes(trainer_lib.GATE_HOLES, 0,
+                                      *vbatch["complete_pc"].shape[:2]), cpu)
+    model_cpu = {k: _on(trainer.model[k], cpu) for k in ("ae", "lgan")}
+    model_cpu["agent"] = {"actor": _on(trainer.model["agent"]["actor"], cpu)}
+    if "gan_path" in trainer.model:
+        model_cpu["gan_path"] = _on(trainer.model["gan_path"], cpu)
+    kw = dict(cfg=trainer.td3, spec=trainer.preproc,
+              bidirectional=trainer.bidirectional)
+    gs = gate_lib.gate_stats_step(trainer.model, _on(vbatch, device),
+                                  _on(vdraws, device), **kw)
+    ref_gs = gate_lib.gate_stats_step(model_cpu, vbatch, vdraws, **kw)
+    cd = max(scaled_err(gs[k].cpu(), ref_gs[k]) for k in ("cd_rl", "cd_ae"))
+    me = (float((gs["margin"].cpu() - ref_gs["margin"]).abs().max())
+          / float(ref_gs["margin"].abs().max()))
+    print(f"gate_stats_step B={vbatch['pad'].shape[0]}: card vs CPU, "
+          f"Chamfer distances {cd:.3e} scaled (tol {TOL_F32:g}), margins "
+          f"{me:.3e} of the largest (tol {TOL_GATE_MARGIN:g})")
+    expect(cd <= TOL_F32 and me <= TOL_GATE_MARGIN,
+           "gate_stats_step: the card disagrees with the CPU")
+
 KERNELS = {
     "encoder_pool_f32": ("gan_rl_3d_tpu_torch/csrc/encoder_pool.cu",
                          "gan_rl_3d_tpu/ops/encoder_kernel.py:151"),
@@ -1612,6 +1998,11 @@ SERVING_KERNELS = ("encoder_pool_f32", "encoder_pool_bf16",
 TRAINING_KERNELS = ("nn_dist", "nn_gather", "nn_scatter")
 EVAL_KERNELS = ("encoder_pool_f32", "nn_dist", "nn_min")
 RL_KERNELS = ("nn_dist",)
+# phase 5's two Chamfer losses (K3 forward, K4/K5 backward) and the gate
+# statistics' (K3); serving the calibrated final checkpoint: K1 through
+# the exported engine, K2 and K3 in evaluate's metrics
+JOINT_KERNELS = ("nn_dist", "nn_gather", "nn_scatter", "encoder_pool_f32",
+                 "nn_min")
 # instances for widths the flagship does not have: run by the checks of
 # phase 2 (and timed at the flagship widths), on no main path
 WIDE_INSTANCES = ("encoder_pool_bf16_wide", "encoder_pool_int8_wide")
@@ -1947,10 +2338,24 @@ def phase_train_times(device):
     return rows
 
 
+TRACED_KERNELS = (("K3", "nn_kernel"), ("K4", "gather_kernel"),
+                  ("K5", "scatter_kernel"))
+
+
+def _is_kernel(name: str, key: str) -> bool:
+    """Whether a traced kernel's name is the port's function ``key``
+    (e.g. "nn_kernel" for K3; demangled, in any namespace, or mangled),
+    never one of PyTorch's at::native kernels."""
+    if "at::native" in name:
+        return False
+    return (key in re.findall(r"[A-Za-z_]\w*", name)
+            or f"{len(key)}{key}" in name)
+
+
 def _trace(fn, calls: int, ms: float, what: str, top=TRACE_TOP) -> dict:
     """torch.profiler trace of ``calls`` calls of ``fn``: device busy ms a
     call, idle share of the ``ms`` call, launches a call, the kernels with
-    the most device time, and K3's device time a call."""
+    the most device time, and the device time a call of K3, K4 and K5."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -1960,17 +2365,21 @@ def _trace(fn, calls: int, ms: float, what: str, top=TRACE_TOP) -> dict:
     events = device_kernel_times(prof)
     busy = sum(us for _, _, us in events) / 1e3 / calls
     launches = sum(n for _, n, _ in events) / calls
-    k3 = sum(us for name, _, us in events
-             if "nn_kernel" in name) / 1e3 / calls
+    kernel_ms = {label: sum(us for name, _, us in events
+                            if _is_kernel(name, key)) / 1e3 / calls
+                 for label, key in TRACED_KERNELS}
     expect(busy > 0, f"{what}: no device time in the trace")
     print(f"{what} trace of {calls} calls: device busy {busy:.3f} ms a "
           f"call, idle share {1 - busy / ms:.3f} of the {ms:.3f} ms call, "
-          f"{launches:.0f} device launches a call, K3 {k3:.4f} ms a call "
-          f"({k3 / busy:.4f} of device busy); most device time:")
+          f"{launches:.0f} device launches a call, " + ", ".join(
+              f"{k} {v:.4f} ms a call ({v / busy:.4f} of device busy)"
+              for k, v in kernel_ms.items() if v or k == "K3")
+          + "; most device time:")
     for name, n, us in sorted(events, key=lambda e: -e[2])[:top]:
         print(f"  {us / 1e3 / calls:9.4f} ms  x{n / calls:6.0f}  {name[:110]}")
     return {"ms": ms, "device_busy_ms": busy, "idle_share": 1 - busy / ms,
-            "launches": launches, "k3_ms": k3}
+            "launches": launches,
+            **{f"{k.lower()}_ms": v for k, v in kernel_ms.items()}}
 
 
 def phase_rl_times(device, trainer):
@@ -2057,6 +2466,83 @@ def trace_rl_steps(cases, ms) -> dict:
     return rows
 
 
+def phase_joint_times(device, trainer):
+    """ms per ``joint_train_step`` at B=64, full width, in f32 and
+    bf16_selective (the recipe's), per ``gate_stats_step`` batch (B=64)
+    and per D step of the refresh (the recipe's batch 16, a fresh Adam,
+    the generator frozen), from phase 5.5's weights, by CUDA events.
+    Returns the joint steps and the gate statistics as cases for
+    ``trace_rl_steps``."""
+    from gan_rl_3d_tpu_torch.ops import pointcloud as pc_ops
+    from gan_rl_3d_tpu_torch.train import gate as gate_lib
+    from gan_rl_3d_tpu_torch.train import steps
+    from gan_rl_3d_tpu_torch.train import trainer as trainer_lib
+
+    cfg = trainer.config
+    jc, lc, m = cfg.training.joint, cfg.training.lgan, cfg.model.lgan
+    gen = torch.Generator(device).manual_seed(70)
+    data = trainer._resident_train_data()
+    holder = {"model": _joint_model(trainer.model, device)}
+    opt = steps.make_joint_optimizer(
+        steps.joint_trainable(holder["model"], jc.freeze_generator), jc)
+    pad = torch.zeros(B_MAIN, device=device)
+
+    def joint_step(precision):
+        idx = torch.randint(0, len(data), (B_MAIN,), generator=gen,
+                            device=device)
+        draws = pc_ops.draw_training_batch(gen, B_MAIN, N_MAIN,
+                                           spec=trainer.preproc)
+        holder["model"], _ = steps.joint_train_step(
+            holder["model"], opt, {"complete_pc": data[idx], "pad": pad},
+            draws, **_joint_kw(trainer, precision))
+
+    lgan = trainer.model["lgan"]
+    params = _on(lgan["params"], device, grad=True)
+    state = {"s": _on(lgan["state"], device)}
+    d_opt = steps.make_gan_optimizer(params["discriminator"],
+                                     lc.discriminator_lr, lc)
+    gfvs = torch.from_numpy(trainer.gfvs["clean"]).to(device)
+    real = gfvs[torch.randint(0, len(gfvs), (JOINT_REFRESH, lc.batch_size),
+                              generator=gen, device=device)]
+
+    def refresh():
+        draws = [steps.draw_lgan_d(gen, lc.batch_size, m.z_dim,
+                                   m.discriminator_dims)
+                 for _ in range(JOINT_REFRESH)]
+        state["s"], _ = steps.lgan_d_refresh(params, state["s"], d_opt, real,
+                                             draws, lambda_gp=lc.lambda_gp)
+
+    vb = next(iter(trainer.val_loader))
+    vbatch = {"complete_pc": torch.from_numpy(vb["complete_pc"]).to(device),
+              "pad": torch.from_numpy(vb["pad"]).to(device)}
+    vdraws = trainer._fixed_holes(trainer_lib.GATE_HOLES, 0,
+                                  *vbatch["complete_pc"].shape[:2])
+
+    def gate_batch():
+        gate_lib.gate_stats_step(trainer.model, vbatch, vdraws,
+                                 cfg=trainer.td3, spec=trainer.preproc,
+                                 bidirectional=trainer.bidirectional)
+
+    cases = tuple((f"joint_train_step {p} B={B_MAIN}",
+                   (lambda p=p: joint_step(p)), 10, TRACE_JOINT)
+                  for p in ("float32", "bf16_selective")) + (
+        (f"gate_stats_step B={vbatch['pad'].shape[0]}", gate_batch, 10,
+         TRACE_JOINT),)
+    ms = {}
+    for name, fn, reps, _ in cases:
+        torch.cuda.reset_peak_memory_stats()
+        ms[name] = timed_ms(fn, reps=reps, repeats=3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"{name}: {ms[name]:.3f} ms a call, "
+              f"{B_MAIN / (ms[name] / 1e3):.1f} clouds/s, peak memory "
+              f"{peak:.2f} GiB")
+    per_d = timed_ms(refresh, reps=1, repeats=3) / JOINT_REFRESH
+    print(f"D refresh (lgan_d_refresh, {JOINT_REFRESH} steps at "
+          f"B={lc.batch_size}): {per_d:.3f} ms per D step")
+    torch.cuda.synchronize()
+    return cases, ms, {"refresh_ms_per_d_step": per_d}
+
+
 def main() -> None:
     device = phase_device()
     from gan_rl_3d_tpu_torch.convert import model_from_numpy
@@ -2081,17 +2567,22 @@ def main() -> None:
         evaluation = phase_eval(device, Path(tmp), cfg)
         rl_path, trainer = phase_rl(device, cfg)
         rl_checks(device, trainer)
+        joint_path, jtrainer = phase_joint(device, trainer.config, Path(tmp))
+        joint_checks(device, jtrainer)
     rows = phase_times(device, engine, engine_bf16, engine_q)
     rl_cases = phase_rl_times(device, trainer)
+    joint_cases, joint_ms, joint_times = phase_joint_times(device, jtrainer)
     rows.update(phase_train_times(device))
     step_rows = trace_rl_steps(*rl_cases)
+    joint_rows = trace_rl_steps(joint_cases, joint_ms)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         by_path = {"serving": serving.get(name, 0),
                    "training": training.get(name, 0),
                    "evaluation": evaluation.get(name, 0),
-                   "rl": rl_path.get(name, 0)}
+                   "rl": rl_path.get(name, 0),
+                   "joint": joint_path.get(name, 0)}
         expect(name in WIDE_INSTANCES or sum(by_path.values()) > 0,
                f"{name} never launched on a main path")
         expect(checks.get(name, 0) > 0, f"{name} never checked")
@@ -2112,6 +2603,7 @@ def main() -> None:
         f"{k['name']} x{k['launches']} (checks x{k['launches_in_checks']})"
         for k in kernels))
     print("rl steps: " + json.dumps(step_rows))
+    print("joint steps: " + json.dumps({**joint_rows, **joint_times}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -60,6 +60,9 @@ def _build_fn(args, config, device):
         checkpoint=None if args.engine else args.checkpoint,
         default_mode=config.model.gate_mode,
         default_bias=config.model.gate_bias, verbose=True)
+    if (gate_mode, gate_bias) != (config.model.gate_mode,
+                                  config.model.gate_bias):
+        print(f"using calibrated gate: mode={gate_mode} bias={gate_bias:.4f}")
     if args.gate_mode is not None:
         gate_mode = args.gate_mode
         print(f"gate mode forced by --gate-mode: {gate_mode}")

@@ -1,11 +1,12 @@
 """Typed configuration (gan_rl_3d_tpu/config.py).
 
 Frozen dataclasses for ``model.*``, the training fields of the serving
-path, ``evaluate`` and phases 1-4 (autoencoder, LGAN, RL), ``loss``,
-``data``, ``evaluation`` and ``logging``, with the JAX package's defaults
-and validation (gan_rl_3d_tpu/config.py:29-311). ``load_config`` reads the
-same YAML schema; sections and keys the port does not model yet (the
-joint block, the logger's backends) are skipped.
+path, ``evaluate`` and phases 1-5 (autoencoder, LGAN, RL, joint fine-tune
+with the D refresh and the gate calibration), ``loss``, ``data``,
+``evaluation`` and ``logging``, with the JAX package's defaults and
+validation (gan_rl_3d_tpu/config.py:29-311). ``load_config`` reads the
+same YAML schema; keys the port does not model yet (the logger's
+backends, the TPU-only training fields) are skipped.
 """
 
 from __future__ import annotations
@@ -109,6 +110,29 @@ class RLTrainConfig:
 
 
 @dataclass(frozen=True)
+class JointTrainConfig:
+    """Phase 5 and phase 5.5 (config.py:126-170)."""
+
+    enabled: bool = True
+    epochs: int = 50
+    lr: float = 1e-4
+    weight_decay: float = 1e-5
+    # adds w * Chamfer(decode(noisy GFV), complete) to the joint loss, so
+    # the AE path keeps training (0 = the reference's joint loss)
+    w_ae_recon: float = 0.0
+    # > 0: retrain D for this many WGAN-GP steps on the post-joint GFVs
+    refresh_d_steps: int = 0
+    # sweep the gate threshold on the val split and write
+    # gate_calibration.json beside the checkpoints
+    calibrate_gate: bool = False
+    # G out of the trainable set, its forward in eval mode
+    freeze_generator: bool = False
+    # serve the GAN branch from a snapshot of (G, decoder) taken before
+    # the joint phase; the D refresh draws its fakes from it
+    preserve_gan_path: bool = False
+
+
+@dataclass(frozen=True)
 class TrainingConfig:
     # "float32"; "bfloat16"/"bf16" (bf16 matmul operands and activations,
     # f32 master weights, BN statistics and loss); "bf16_selective" (bf16
@@ -129,6 +153,7 @@ class TrainingConfig:
     autoencoder: AETrainConfig = field(default_factory=AETrainConfig)
     lgan: LGANTrainConfig = field(default_factory=LGANTrainConfig)
     rl_agent: RLTrainConfig = field(default_factory=RLTrainConfig)
+    joint: JointTrainConfig = field(default_factory=JointTrainConfig)
 
     def __post_init__(self):
         if self.precision not in ("float32", "f32", "bfloat16", "bf16",
@@ -266,7 +291,9 @@ def flagship_config() -> Config:
     the 200-epoch cosine autoencoder phase, the LGAN phase (10 epochs,
     batch 16, 3 D steps a G step), the RL phase (22,000 episodes over 64
     parallel environments, 64 TD3 updates an iteration, critic warmup and
-    actor ramp), and all five evaluation metrics."""
+    actor ramp), the joint phase (4 epochs at lr 1e-4 with the AE-path
+    term, then 400 D refresh steps and the gate calibration), and all five
+    evaluation metrics."""
     return Config(
         model=ModelConfig(lgan=LGANModelConfig(z_dim=8),
                           rl_agent=RLAgentModelConfig(action_dim=8)),
@@ -285,7 +312,11 @@ def flagship_config() -> Config:
                 exploration_noise=0.1, policy_noise=0.2, noise_clip=0.5,
                 policy_delay=2, start_training_steps=256, envs_per_step=64,
                 updates_per_step=64, actor_warmup=2000,
-                actor_lr_ramp=1500)),
+                actor_lr_ramp=1500),
+            joint=JointTrainConfig(
+                enabled=True, epochs=4, lr=1e-4, weight_decay=1e-5,
+                w_ae_recon=1.0, refresh_d_steps=400, calibrate_gate=True,
+                preserve_gan_path=False)),
         evaluation=EvaluationConfig(metrics=(
             "chamfer_distance", "completion_ratio", "hausdorff_distance",
             "f_score", "emd")),

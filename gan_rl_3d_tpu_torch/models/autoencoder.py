@@ -5,7 +5,8 @@ head 128->128 +BN+ReLU; decoder 128->256->256->6144 reshaped row-major to
 (B, 2048, 3). ``encoder_apply`` / ``decoder_apply`` run eval mode and
 return tensors (the serving path); ``autoencoder_apply`` takes
 ``training=`` and returns the new BatchNorm state, as the JAX function
-does. The attention encoder and adaptive decoder variants are a later
+does; ``any_encoder_apply`` / ``any_decoder_apply`` run either half that
+way (the joint step's encoder and its one decoder pass). The attention encoder and adaptive decoder variants are a later
 slice (ROADMAP queue 1, item 16).
 """
 
@@ -108,6 +109,22 @@ def decoder_apply(params: dict, state: dict, gfv: Tensor) -> Tensor:
     """GFV (B, latent_dim) -> cloud (B, num_points, 3), eval mode
     (autoencoder.py:92-103)."""
     return _decode(params, state, gfv, training=False)[0]
+
+
+def any_encoder_apply(params: dict, state: dict, pc: Tensor,
+                      mask: Optional[Tensor] = None, *,
+                      training: bool = False, bn_stats: str = "centered"
+                      ) -> Tuple[Tensor, dict]:
+    """(GFV, new state) (autoencoder.py:115-122; the pointnet encoder
+    alone, the variants being a later item)."""
+    return _encode(params, state, pc, mask, training, bn_stats)
+
+
+def any_decoder_apply(params: dict, state: dict, gfv: Tensor, *,
+                      training: bool = False, bn_stats: str = "centered"
+                      ) -> Tuple[Tensor, dict]:
+    """(cloud, new state) (autoencoder.py:125-131)."""
+    return _decode(params, state, gfv, training, bn_stats)
 
 
 def autoencoder_apply(params: dict, state: dict, pc: Tensor,

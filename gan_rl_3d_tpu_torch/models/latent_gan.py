@@ -73,11 +73,15 @@ def lgan_init(generator: torch.Generator, z_dim: int = 1,
 
 
 def generator_apply(params: dict, state: dict, z: Tensor, *,
-                    training: bool = False) -> Tuple[Tensor, dict]:
+                    training: bool = False, bn_stats: str = "centered"
+                    ) -> Tuple[Tensor, dict]:
     """z (B, z_dim) -> clean GFV (B, latent_dim) in [-1, 1], and the new
-    BN state (centered training statistics, as phases 3-5 use)."""
+    BN state. Phases 3-4 train BN with the centered statistics; the joint
+    step passes training.bn_stats, as the JAX joint step sets it for every
+    network it runs."""
     gfv, mlp_s = bn_mlp_apply(params["mlp"], state["mlp"], z,
-                              training=training, final_activation=torch.tanh)
+                              training=training, bn_stats=bn_stats,
+                              final_activation=torch.tanh)
     return gfv, {"mlp": mlp_s}
 
 

@@ -1,4 +1,4 @@
-"""Train and eval steps of phases 1-4 (gan_rl_3d_tpu/train/steps.py:42-685).
+"""Train and eval steps of phases 1-5 (gan_rl_3d_tpu/train/steps.py:42-879).
 
 PyTorch runs eagerly, so a step is a plain function. Phase 1: the data
 transforms on the device, the AE forward with training BatchNorm, the
@@ -7,7 +7,10 @@ and Adam. Phase 2 encodes clean and holed clouds with the frozen encoder;
 phase 3 is the latent WGAN-GP (D steps with the gradient penalty's double
 backward, then a G step); phase 4 collects transitions from B parallel
 environments (the reward's Chamfer distance is K3 on the card) into the
-replay ring and runs TD3 updates. The JAX steps are pure and return new
+replay ring and runs TD3 updates. Phase 5 fine-tunes the encoder, the
+decoder and the generator together against the frozen actor (two
+Chamfer losses when the AE path trains too: K3 forward, K4/K5 backward on
+the card). The JAX steps are pure and return new
 parameters; here the optimizers update the parameter tensors in place,
 and a step returns the new BatchNorm and spectral-norm state. Each step
 takes its random numbers as arguments (``draw_*`` draws them from a
@@ -23,7 +26,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from gan_rl_3d_tpu_torch.config import AETrainConfig, LGANTrainConfig
+from gan_rl_3d_tpu_torch.config import (AETrainConfig, JointTrainConfig,
+                                        LGANTrainConfig)
 from gan_rl_3d_tpu_torch.models import autoencoder as ae
 from gan_rl_3d_tpu_torch.models import latent_gan as lg
 from gan_rl_3d_tpu_torch.models import rl_agent as rl
@@ -421,3 +425,142 @@ def rl_eval_reward(model: dict, batch: Dict[str, Tensor],
     per_cd = chamfer.chamfer_distance(info["completed_pc"], env0.target_pc)
     return {"reward": _masked_mean(rewards, batch["pad"]),
             "chamfer": _masked_mean(per_cd, batch["pad"])}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: joint fine-tune
+# ---------------------------------------------------------------------------
+
+
+def joint_trainable(model: dict, freeze_generator: bool = False) -> dict:
+    """The joint phase's trainable parameters: ``ae``, and ``gen`` (the
+    generator) unless it is frozen (trainer.py:520-523)."""
+    trainable = {"ae": model["ae"]["params"]}
+    if not freeze_generator:
+        trainable["gen"] = model["lgan"]["params"]["generator"]
+    return trainable
+
+
+def make_joint_optimizer(params, cfg: JointTrainConfig) -> torch.optim.Adam:
+    """optax.chain(add_decayed_weights(wd), scale_by_adam(), lr)
+    (steps.py:687-692): the decay joins the gradient before the moments,
+    which is torch's Adam(weight_decay=wd), not AdamW. ``params`` is the
+    trainable tree (``joint_trainable``)."""
+    return torch.optim.Adam(tree_leaves(params), lr=cfg.lr,
+                            weight_decay=cfg.weight_decay)
+
+
+def joint_train_step(model: dict, optimizer: torch.optim.Optimizer,
+                     batch: Dict[str, Tensor], draws: Dict[str, Tensor], *,
+                     cfg: rl.TD3Config,
+                     compute_dtype: Optional[torch.dtype] = None,
+                     spec: pc_ops.PreprocSpec = pc_ops.DEFAULT_PREPROC,
+                     bidirectional: bool = True, w_ae_recon: float = 0.0,
+                     selective: bool = False, bn_stats: str = "centered",
+                     freeze_generator: bool = False
+                     ) -> Tuple[dict, Dict[str, Tensor]]:
+    """One joint fine-tune step (steps.py:695-809): holes with
+    augmentation -> encoder in training mode -> z from the actor in eval
+    mode with no gradient -> G (training mode, or eval mode when
+    ``freeze_generator``) -> decoder in training mode -> loss =
+    Chamfer(decode(G(z)), complete) + 0.1 * MSE(clean GFV, noisy GFV),
+    whose MSE gradient reaches both GFVs. With ``w_ae_recon`` > 0 both GFVs
+    go through one (2B, .) decoder pass and w * Chamfer(decode(noisy GFV),
+    complete) joins the loss. ``optimizer`` holds the trainable leaves
+    (``joint_trainable``) and updates them in place. Returns (the model
+    with the new BN states of the encoder, decoder and generator, {"loss",
+    "chamfer", "gfv"}); a frozen G keeps its parameters and state."""
+    complete, incomplete, mask = pc_ops.apply_training_batch(
+        batch["complete_pc"], draws, spec=spec, do_augment=True)
+    ae_p = model["ae"]["params"]
+    gen_p = model["lgan"]["params"]["generator"]
+    if freeze_generator:
+        gen_p = tree_map(lambda v: v.detach(), gen_p)
+    x_in = incomplete
+    if compute_dtype is not None:
+        ae_p = (_policy_cast_ae_selective(ae_p, compute_dtype) if selective
+                else _policy_cast(ae_p, compute_dtype))
+        gen_p = _policy_cast(gen_p, compute_dtype)
+        x_in = incomplete.to(compute_dtype)
+    ae_s, gen_s = model["ae"]["state"], model["lgan"]["state"]["generator"]
+    actor = model["agent"]["actor"]
+    optimizer.zero_grad(set_to_none=True)
+    noisy_gfv, enc_s = ae.any_encoder_apply(
+        ae_p["encoder"], ae_s["encoder"], x_in, mask, training=True,
+        bn_stats=bn_stats)
+    with torch.no_grad():
+        z, _ = rl.actor_apply(actor["params"], actor["state"], noisy_gfv,
+                              cfg=cfg, training=False)
+    clean_gfv, new_gen_s = lg.generator_apply(
+        gen_p, gen_s, z, training=not freeze_generator, bn_stats=bn_stats)
+    if w_ae_recon > 0.0:
+        bsz = clean_gfv.shape[0]
+        both, dec_s = ae.any_decoder_apply(
+            ae_p["decoder"], ae_s["decoder"],
+            torch.cat([clean_gfv, noisy_gfv], dim=0), training=True,
+            bn_stats=bn_stats)
+        completed, ae_recon = both[:bsz], both[bsz:]
+    else:
+        completed, dec_s = ae.any_decoder_apply(
+            ae_p["decoder"], ae_s["decoder"], clean_gfv, training=True,
+            bn_stats=bn_stats)
+    ch = _masked_mean(chamfer.chamfer_distance(
+        completed, complete, bidirectional=bidirectional), batch["pad"])
+    gl = losses_ops.gfv_loss(clean_gfv, noisy_gfv)
+    loss = ch + 0.1 * gl
+    if w_ae_recon > 0.0:
+        loss = loss + w_ae_recon * _masked_mean(chamfer.chamfer_distance(
+            ae_recon, complete, bidirectional=bidirectional), batch["pad"])
+    loss.backward()
+    optimizer.step()
+    lgan = model["lgan"]
+    new_model = dict(model)
+    new_model["ae"] = {"params": model["ae"]["params"],
+                       "state": {"encoder": enc_s, "decoder": dec_s}}
+    new_model["lgan"] = {
+        "params": lgan["params"],
+        "state": {"generator": gen_s if freeze_generator else new_gen_s,
+                  "discriminator": lgan["state"]["discriminator"]}}
+    return new_model, {"loss": loss.detach(), "chamfer": ch.detach(),
+                       "gfv": gl.detach()}
+
+
+def joint_train_epoch(model: dict, optimizer: torch.optim.Optimizer,
+                      data: Tensor, order: Tensor, pads: Tensor,
+                      generator: torch.Generator, *,
+                      spec: pc_ops.PreprocSpec = pc_ops.DEFAULT_PREPROC,
+                      **step_kw) -> Tuple[dict, Dict[str, Tensor]]:
+    """One joint epoch over a device-resident train split (the loop form
+    of joint_train_epoch_resident, steps.py:812-857), as ae_train_epoch:
+    each step gathers its batch on the device and draws its transforms
+    from ``generator``. Returns (model, {"losses": (S,) tensor})."""
+    losses = []
+    for idx, pad in zip(order, pads):
+        complete = data[idx]
+        draws = pc_ops.draw_training_batch(generator, complete.shape[0],
+                                           complete.shape[1], spec=spec)
+        model, m = joint_train_step(
+            model, optimizer, {"complete_pc": complete, "pad": pad}, draws,
+            spec=spec, **step_kw)
+        losses.append(m["loss"])
+    return model, {"losses": torch.stack(losses) if losses
+                   else torch.zeros(0)}
+
+
+@torch.no_grad()
+def joint_eval_step(model: dict, batch: Dict[str, Tensor],
+                    draws: Dict[str, Tensor], *, cfg: rl.TD3Config,
+                    spec: pc_ops.PreprocSpec = pc_ops.DEFAULT_PREPROC,
+                    bidirectional: bool = True,
+                    gate_mode: str = "discriminator",
+                    gate_bias: float = 0.0) -> Dict[str, Tensor]:
+    """Validation through ``complete`` with the hybrid gate, holes from
+    ``draws``, no augmentation: the masked mean Chamfer distance of the
+    hybrid output (steps.py:860-879)."""
+    complete, incomplete, mask = pc_ops.apply_training_batch(
+        batch["complete_pc"], draws, spec=spec, do_augment=False)
+    out = net.complete(model, incomplete, mask, cfg=cfg, gate_mode=gate_mode,
+                       gate_bias=gate_bias)
+    per = chamfer.chamfer_distance(out["hybrid_output"], complete,
+                                   bidirectional=bidirectional)
+    return {"loss": _masked_mean(per, batch["pad"])}

@@ -1,24 +1,33 @@
-"""Curriculum trainer, phases 1-4 (gan_rl_3d_tpu/train/trainer.py).
+"""Curriculum trainer, phases 1-5 (gan_rl_3d_tpu/train/trainer.py).
 
 ``RLGANNetTrainer`` holds the data splits, the model tree and the
 checkpoints. The model tree holds ``ae``, ``lgan``, the whole TD3 agent
-and, from a checkpoint that has one, ``gan_path``; ``evaluate`` and
-``complete_clouds --checkpoint`` read its serving part. Phase 1 trains the
-autoencoder: the train split lives on the device for the whole phase,
-each epoch is a loop of ``steps.ae_train_step`` over a shuffled batch
-plan, validation runs with fixed per-batch hole draws. Phase 2 extracts
-the train split's (clean, noisy) GFV pairs; phase 3 trains the latent
-WGAN-GP on the clean ones; phase 4 trains the TD3 agent in batched
-environments whose reward runs K3, with a greedy eval on a fixed,
-evenly spread validation batch. The best and periodic checkpoints are
-written in the JAX package's pickle layout. The ``_trainstate`` siblings
-(mid-phase resume) and the joint phase are later items (ROADMAP queue 1,
-items 14-15).
+and, from a checkpoint that has one or a joint phase that takes one,
+``gan_path``; ``evaluate`` and ``complete_clouds --checkpoint`` read its
+serving part. Phase 1 trains the autoencoder: the train split lives on the
+device for the whole phase, each epoch is a loop of
+``steps.ae_train_step`` over a shuffled batch plan, validation runs with
+fixed per-batch hole draws. Phase 2 extracts the train split's (clean,
+noisy) GFV pairs; phase 3 trains the latent WGAN-GP on the clean ones;
+phase 4 trains the TD3 agent in batched environments whose reward runs
+K3, with a greedy eval on a fixed, evenly spread validation batch. Phase
+5 fine-tunes the encoder, decoder and generator against the frozen actor
+(``steps.joint_train_step``) and validates through the hybrid gate; phase
+5.5 (``post_joint_refresh``) retrains D on the post-joint GFVs and
+calibrates the gate on the val split, writing ``gate_calibration.json``.
+``train_full_pipeline`` runs the curriculum, restarting at the phase a
+loaded checkpoint records, and ends with ``final``. The best and periodic
+checkpoints are written in the JAX package's pickle layout. The
+``_trainstate`` siblings of the periodic checkpoints (every phase's
+optimizer moments, the RL buffer, ``joint_epoch_N_trainstate`` too) and
+mid-phase resume from them are a later item (ROADMAP queue 1, item 15):
+``--resume`` loads the model and the phase starts from its first epoch.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import shutil
 import time
 from pathlib import Path
 from typing import Dict, Optional, Tuple
@@ -35,6 +44,7 @@ from gan_rl_3d_tpu_torch.device import resolve_device
 from gan_rl_3d_tpu_torch.models import rl_agent as rl
 from gan_rl_3d_tpu_torch.models import rl_gan_net as net
 from gan_rl_3d_tpu_torch.ops import pointcloud as pc_ops
+from gan_rl_3d_tpu_torch.train import gate as gate_lib
 from gan_rl_3d_tpu_torch.train import replay_buffer as rb
 from gan_rl_3d_tpu_torch.train import steps
 from gan_rl_3d_tpu_torch.utils import checkpoint as ckpt_lib
@@ -42,6 +52,9 @@ from gan_rl_3d_tpu_torch.utils.tree import tree_leaves, tree_map
 
 PHASES = net.PHASES
 EVAL_HOLES_SEED = 777  # the greedy eval's fixed holes (trainer.py:460)
+# streams of fixed per-batch holes, as the JAX trainer's validation keys:
+# batch i of stream s draws from a generator seeded (s << 32) + i
+AE_VAL_HOLES, JOINT_VAL_HOLES, GATE_HOLES = 0, 1, 2
 
 
 class RLGANNetTrainer:
@@ -80,6 +93,14 @@ class RLGANNetTrainer:
         # sync); and the greedy evals as (episode, reward, chamfer)
         self.rl_history: list = []
         self.rl_evals: list = []
+        self.joint_losses: list = []  # (train, val) loss of every epoch
+        self.refresh_d_losses: list = []  # every D refresh step's loss
+        self.gate_report: Optional[dict] = None
+        self.epoch = 0  # the last AE epoch trained in this run
+        self.current_phase = "autoencoder"  # set by load_checkpoint
+        # whether this run calibrated the gate: a sidecar of an earlier run
+        # must not stay scoped to a checkpoint this run overwrites
+        self._gate_calibrated = False
 
     def _on_device(self, params, state) -> dict:
         return {"params": tree_map(lambda v: v.to(self.device)
@@ -156,6 +177,7 @@ class RLGANNetTrainer:
             self.train_losses.extend(losses.tolist())
             train_loss = float(losses.mean())
             self.model["ae"] = {"params": params, "state": bn_state}
+            self.epoch = epoch
             # validate per evaluation.eval_frequency, and on the last epoch
             val_loss = None
             if (epoch + 1) % eval_freq == 0 or epoch == num_epochs - 1:
@@ -186,15 +208,22 @@ class RLGANNetTrainer:
             self.preproc, hole_min=round(self.preproc.hole_min * frac, 6),
             hole_max=round(self.preproc.hole_max * frac, 6))
 
+    def _fixed_holes(self, stream: int, i: int, bsz: int, n: int
+                     ) -> Dict[str, torch.Tensor]:
+        """Batch i's holes in a stream of fixed per-batch draws (no
+        augmentation), the same in every epoch."""
+        return pc_ops.draw_training_batch(
+            torch.Generator(self.device).manual_seed((stream << 32) + i),
+            bsz, n, spec=self.preproc, augment=False)
+
     def _validate_ae(self, params, bn_state) -> float:
-        """Mean eval loss over the val split, batch i's holes drawn from a
-        generator seeded with i (fixed holes, comparable epochs)."""
+        """Mean eval loss over the val split, batch i's holes fixed
+        (comparable epochs)."""
         losses = []
         for i, batch in enumerate(self.val_loader):
             pc = torch.from_numpy(batch["complete_pc"]).to(self.device)
-            draws = pc_ops.draw_training_batch(
-                torch.Generator(self.device).manual_seed(i), pc.shape[0],
-                pc.shape[1], spec=self.preproc, augment=False)
+            draws = self._fixed_holes(AE_VAL_HOLES, i, pc.shape[0],
+                                      pc.shape[1])
             m = steps.ae_eval_step(
                 params, bn_state,
                 {"complete_pc": pc,
@@ -409,6 +438,210 @@ class RLGANNetTrainer:
         return best_avg
 
     # ------------------------------------------------------------------
+    # phase 5: joint fine-tune
+    # ------------------------------------------------------------------
+
+    def joint_training(self, num_epochs: Optional[int] = None) -> float:
+        """Epochs of ``steps.joint_train_step`` over the device-resident
+        train split, each validated through the hybrid gate (the config's
+        gate_mode and gate_bias) on fixed holes; ``joint_best`` on the best
+        val loss, ``joint_epoch_N`` every save_model_frequency epochs
+        (trainer.py:516-600). With ``preserve_gan_path`` the serving GAN
+        branch (G and the decoder as they are now) is first copied into
+        ``gan_path``."""
+        cfg = self.config.training.joint
+        num_epochs = num_epochs or cfg.epochs
+        print(f"\n=== PHASE 5: joint fine-tune ({num_epochs} epochs) ===")
+        if cfg.freeze_generator:
+            print("joint: generator FROZEN (phase-3 G preserved; "
+                  "joint.freeze_generator)")
+        if cfg.preserve_gan_path and "gan_path" not in self.model:
+            # copies: Adam updates the live tensors in place
+            snap = lambda tree: tree_map(  # noqa: E731
+                lambda v: v.detach().clone(), tree)
+            self.model["gan_path"] = {
+                "generator": snap({
+                    "params": self.model["lgan"]["params"]["generator"],
+                    "state": self.model["lgan"]["state"]["generator"]}),
+                "decoder": snap({
+                    "params": self.model["ae"]["params"]["decoder"],
+                    "state": self.model["ae"]["state"]["decoder"]}),
+            }
+            print("joint: serving GAN branch SNAPSHOTTED (pre-joint G + "
+                  "decoder; joint.preserve_gan_path)")
+        trainable = steps.joint_trainable(self.model, cfg.freeze_generator)
+        for v in tree_leaves(trainable):
+            v.requires_grad_(True)
+        optimizer = steps.make_joint_optimizer(trainable, cfg)
+        step_kw = dict(
+            cfg=self.td3, compute_dtype=self.compute_dtype, spec=self.preproc,
+            bidirectional=self.bidirectional, w_ae_recon=cfg.w_ae_recon,
+            selective=self.precision_selective, bn_stats=self.bn_stats,
+            freeze_generator=cfg.freeze_generator)
+        best_val = float("inf")
+        data = self._resident_train_data()
+        for epoch in range(num_epochs):
+            t0 = time.time()
+            order, pads = self.train_loader.epoch_indices()
+            self.model, m = steps.joint_train_epoch(
+                self.model, optimizer, data,
+                torch.from_numpy(order).long().to(self.device),
+                torch.from_numpy(pads).to(self.device), self.generator,
+                **step_kw)
+            train_loss = float(m["losses"].mean())
+            val_loss = self._validate_joint()
+            self.joint_losses.append((train_loss, val_loss))
+            print(f"Joint epoch {epoch + 1}/{num_epochs} "
+                  f"train {train_loss:.6f} val {val_loss:.6f} "
+                  f"({time.time() - t0:.1f}s)")
+            if val_loss < best_val:
+                best_val = val_loss
+                self.save_checkpoint("joint_best", epoch, "joint")
+            if (epoch + 1) % self._save_freq == 0:
+                self.save_checkpoint(f"joint_epoch_{epoch + 1}", epoch,
+                                     "joint")
+        print(f"Joint done; best val loss {best_val:.6f}")
+        return best_val
+
+    def _validate_joint(self) -> float:
+        """Mean hybrid-output Chamfer over the val split, fixed holes."""
+        losses = []
+        for i, batch in enumerate(self.val_loader):
+            pc = torch.from_numpy(batch["complete_pc"]).to(self.device)
+            m = steps.joint_eval_step(
+                self.model,
+                {"complete_pc": pc,
+                 "pad": torch.from_numpy(batch["pad"]).to(self.device)},
+                self._fixed_holes(JOINT_VAL_HOLES, i, pc.shape[0],
+                                  pc.shape[1]),
+                cfg=self.td3, spec=self.preproc,
+                bidirectional=self.bidirectional,
+                gate_mode=self.config.model.gate_mode,
+                gate_bias=self.config.model.gate_bias)
+            losses.append(m["loss"])
+        return float(torch.stack(losses).mean())
+
+    # ------------------------------------------------------------------
+    # phase 5.5: discriminator refresh + gate calibration
+    # ------------------------------------------------------------------
+
+    def refresh_discriminator(self, num_steps: Optional[int] = None
+                              ) -> float:
+        """Retrain D on the post-joint GFV distribution
+        (trainer.py:606-663): re-extract the clean GFVs with the fine-tuned
+        encoder, then ``num_steps`` WGAN-GP D steps with a fresh Adam and
+        the generator frozen (``steps.lgan_d_refresh``), real batches from
+        RandomState(seed + 5), as the JAX trainer draws them. With a
+        ``gan_path`` snapshot the fakes come from the snapshot's G, and the
+        live model keeps only the refreshed D."""
+        cfg = self.config.training.joint
+        lgan_cfg = self.config.training.lgan
+        m = self.config.model.lgan
+        num_steps = num_steps or cfg.refresh_d_steps
+        print(f"\n=== PHASE 5.5a: discriminator refresh "
+              f"({num_steps} D steps) ===")
+        self.generate_gfvs()
+        gfvs = self.gfvs["clean"]
+        bs = lgan_cfg.batch_size or self.config.training.batch_size
+        rng = np.random.RandomState(self.config.training.seed + 5)
+        idx = rng.randint(0, len(gfvs), size=(num_steps, bs))
+        real = torch.from_numpy(gfvs[idx]).to(self.device)
+        live = self.model["lgan"]
+        d_params = live["params"]["discriminator"]
+        for v in tree_leaves(d_params):
+            v.requires_grad_(True)
+        d_opt = steps.make_gan_optimizer(d_params, lgan_cfg.discriminator_lr,
+                                         lgan_cfg)
+        snap = self.model.get("gan_path")
+        params, state = live["params"], live["state"]
+        if snap is not None:
+            print("D refresh: fakes from the PRESERVED serving generator "
+                  "(joint.preserve_gan_path)")
+            params = dict(params, generator=snap["generator"]["params"])
+            state = dict(state, generator=snap["generator"]["state"])
+        draws = [steps.draw_lgan_d(self.generator, bs, m.z_dim,
+                                   m.discriminator_dims)
+                 for _ in range(num_steps)]
+        t0 = time.time()
+        state, sm = steps.lgan_d_refresh(params, state, d_opt, real, draws,
+                                         lambda_gp=lgan_cfg.lambda_gp)
+        if snap is not None:
+            state = dict(state, generator=live["state"]["generator"])
+        self.model["lgan"] = {"params": live["params"], "state": state}
+        d_losses = sm["d_losses"].cpu().numpy()
+        self.refresh_d_losses = d_losses.tolist()
+        print(f"D refresh done in {time.time() - t0:.1f}s: loss "
+              f"{d_losses[0]:.4f} -> {d_losses[-1]:.4f}")
+        return float(d_losses[-1])
+
+    def calibrate_gate(self) -> Dict[str, object]:
+        """Sweep the gate's threshold on the val split (fixed holes) and
+        write the val-Chamfer-minimising (gate_mode, gate_bias) as
+        ``gate_calibration.json``, scoped to ``joint_calibrated`` and
+        ``final``, the checkpoints that carry this discriminator
+        (trainer.py:665-695)."""
+        print("\n=== PHASE 5.5b: gate calibration (val split) ===")
+        stats = gate_lib.gate_statistics(
+            self.model, self.val_loader,
+            lambda i, bsz, n: self._fixed_holes(GATE_HOLES, i, bsz, n),
+            cfg=self.td3, device=self.device, spec=self.preproc,
+            bidirectional=self.bidirectional)
+        report = gate_lib.calibrate_gate(stats)
+        report["checkpoints"] = ["joint_calibrated", "final"]
+        path = gate_lib.save_gate_calibration(str(self.checkpoint_dir),
+                                              report)
+        self._gate_calibrated = True
+        self.gate_report = report
+        print(f"gate: mode={report['gate_mode']} "
+              f"bias={report['gate_bias']:.4f} "
+              f"val chamfer {report['val_chamfer_raw_gate']:.6f} (raw) -> "
+              f"{report['val_chamfer_calibrated']:.6f} (calibrated); "
+              f"paths rl {report['val_chamfer_rl']:.6f} / "
+              f"ae {report['val_chamfer_ae']:.6f}, "
+              f"oracle {report['oracle_chamfer']:.6f} -> {path}")
+        return report
+
+    def post_joint_refresh(self) -> None:
+        """Phase 5.5 when configured: on ``joint_best``, the D refresh and
+        the gate calibration, saved as ``joint_calibrated``
+        (trainer.py:720-733)."""
+        t = self.config.training.joint
+        if not (t.refresh_d_steps > 0 or t.calibrate_gate):
+            return
+        self.load_checkpoint("joint_best")
+        if t.refresh_d_steps > 0:
+            self.refresh_discriminator(t.refresh_d_steps)
+        if t.calibrate_gate:
+            self.calibrate_gate()
+        self.save_checkpoint("joint_calibrated", self.epoch, "joint")
+
+    # ------------------------------------------------------------------
+    # the curriculum
+    # ------------------------------------------------------------------
+
+    def train_full_pipeline(self, start_phase: Optional[str] = None) -> None:
+        """Phases 1-5 and 5.5, then ``final`` (trainer.py:697-718). From a
+        loaded checkpoint the phases before the one it records are skipped
+        and training restarts at that phase (``start_phase=None``)."""
+        t = self.config.training
+        order = ("autoencoder", "lgan", "rl_agent", "joint")
+        start_idx = order.index(start_phase or self.current_phase)
+        if start_idx > 0:
+            print(f"resuming pipeline at phase {order[start_idx]!r}")
+        if start_idx <= 0:
+            self.train_autoencoder(t.autoencoder.epochs)
+            self.generate_gfvs()
+        if start_idx <= 1:
+            self.train_latent_gan(t.lgan.epochs)
+        if start_idx <= 2:
+            self.train_rl_agent(t.rl_agent.episodes)
+        if start_idx <= 3 and t.joint.enabled:
+            self.joint_training(t.joint.epochs)
+            self.post_joint_refresh()
+        print("\n=== TRAINING COMPLETE ===")
+        self.save_checkpoint("final", self.epoch, "joint")
+
+    # ------------------------------------------------------------------
     # checkpoints
     # ------------------------------------------------------------------
 
@@ -418,8 +651,12 @@ class RLGANNetTrainer:
         (trainer.py:735-778 with use_orbax=False): the agent whole, with
         its targets, step and Adam moments (``convert.agent_to_numpy``). A
         ``gan_path`` snapshot goes to the ``<name>_ganpath`` sibling, and a
-        stale sibling is removed."""
+        stale sibling, file or directory (an orbax run's), is removed.
+        Unless this run calibrated the gate, ``name`` is first taken out of
+        a gate sidecar's scope."""
         path = self.checkpoint_dir / name
+        if not self._gate_calibrated:
+            gate_lib.descope_gate_calibration(str(self.checkpoint_dir), name)
         model = dict(self.model)
         gan_path = model.pop("gan_path", None)
         ckpt_lib.save_checkpoint(
@@ -427,16 +664,20 @@ class RLGANNetTrainer:
                         "meta": {"epoch": np.int32(epoch),
                                  "phase_idx": np.int32(PHASES.index(phase))}})
         sibling = path.parent / (name + "_ganpath")
+        if sibling.is_dir():
+            shutil.rmtree(sibling)
+        elif sibling.exists():
+            sibling.unlink()
         if gan_path is not None:
             ckpt_lib.save_checkpoint(str(sibling), model_to_numpy(gan_path))
-        elif sibling.is_file():
-            sibling.unlink()
 
     def load_checkpoint(self, name: str) -> Tuple[int, str]:
         """Restore the model (``ae``, ``lgan``, the agent and the
         ``<name>_ganpath`` sibling when there is one) from a pickle
         checkpoint of this package or the JAX package. The agent comes back
-        whole: networks, targets, step and Adam moments."""
+        whole: networks, targets, step and Adam moments. The checkpoint's
+        phase becomes ``current_phase``, where ``train_full_pipeline``
+        restarts."""
         model, meta = ckpt_lib.load_model_checkpoint(str(self.checkpoint_dir),
                                                      name)
         cpu = torch.device("cpu")
@@ -448,6 +689,7 @@ class RLGANNetTrainer:
                                             tree_from_numpy(a["state"], cpu))}
         epoch = int(meta["epoch"])
         phase = PHASES[int(meta["phase_idx"])]
+        self.current_phase = phase
         print(f"loaded checkpoint {self.checkpoint_dir / name} "
               f"(epoch {epoch}, phase {phase})")
         return epoch, phase

@@ -1,8 +1,9 @@
 """The port's CLIs on the CPU: serving (gan_rl_3d_tpu_torch.complete_clouds
 --engine) with its device and checkpoint refusals and the engine-file
 guard; training (gan_rl_3d_tpu_torch.train_rl_gan_net --phase
-autoencoder), whose checkpoint the JAX package reads back; and the import
-hygiene of the port (no JAX anywhere in it)."""
+autoencoder), whose checkpoint the JAX package reads back (the later
+phases: tests/test_torch_port_rl.py, tests/test_torch_port_joint.py); and
+the import hygiene of the port (no JAX anywhere in it)."""
 
 import subprocess
 import sys
@@ -25,7 +26,6 @@ from gan_rl_3d_tpu_torch.data import dataset as tdataset
 from gan_rl_3d_tpu_torch.data.dataset import load_ply
 from gan_rl_3d_tpu_torch.models import autoencoder as tae
 from gan_rl_3d_tpu_torch.models import inference as tinf
-from gan_rl_3d_tpu_torch.train_rl_gan_net import main as train_main
 from gan_rl_3d_tpu_torch.utils.ply import save_ply
 from test_torch_port_modules import N_POINTS, SMALL, close, small_model_tree, t
 
@@ -180,12 +180,6 @@ def test_cli_trains_phase_one_and_jax_reads_the_checkpoint(tmp_path):
     again = model_to_numpy({"ae": port_ae})["ae"]
     for a, b in zip(jax.tree.leaves(again), jax.tree.leaves(ae_tree)):
         np.testing.assert_array_equal(a, b)
-
-
-@pytest.mark.parametrize("phase", ["joint", "full"])
-def test_cli_refuses_phases_not_ported(phase):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train_main(["--phase", phase, "--device", "cpu"])
 
 
 def test_port_imports_no_jax():

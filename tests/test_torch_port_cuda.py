@@ -703,3 +703,104 @@ def test_rl_step_on_card_matches_cpu(cuda):
     assert chip_smoke.scaled_err(ou.cpu(), rou) <= chip_smoke.TOL_RL_PARAM
     chip_smoke._check_agents("rl_step", card["agent"], ref["agent"], start,
                              updates, td3.critic_lr)
+
+
+def _joint_trainer(device, seed=11):
+    """What chip_smoke's joint checks read of a trainer: the flagship
+    config and a fresh model on ``device``."""
+    import types
+
+    from gan_rl_3d_tpu_torch.ops import pointcloud as pc_ops
+
+    cfg, td3, model, _ = _rl_model(device, seed=seed)
+    return types.SimpleNamespace(
+        config=cfg, model=model, td3=td3, preproc=cfg.preproc_spec(),
+        bidirectional=cfg.loss.bidirectional, bn_stats=cfg.training.bn_stats,
+        _fixed_holes=lambda stream, i, bsz, n: pc_ops.draw_training_batch(
+            torch.Generator(device).manual_seed((stream << 32) + i), bsz, n,
+            spec=cfg.preproc_spec(), augment=False))
+
+
+@pytest.mark.cuda
+def test_joint_step_on_card_matches_cpu(cuda):
+    """One f32 joint step (the recipe's w_ae_recon 1) at B=8, full width,
+    on the card and on CPU copies from the same weights, draws and Adam
+    moments one step old (chip_smoke.joint_warm): the loss and its parts,
+    each network's update (chip_smoke.TOL_JOINT_UPDATE, which says why it
+    is looser than the phase 3-4 steps') and state; lr 0 on the card fails
+    the update check."""
+    trainer = _joint_trainer(cuda)
+    lr = trainer.config.training.joint.lr
+    warm = chip_smoke.joint_warm(trainer, seed=12)
+    start = chip_smoke._joint_networks(warm[0])
+    batch, draws = chip_smoke.joint_batch(trainer, seed=13)
+    (sm, card), (ref_m, ref) = (
+        chip_smoke.joint_step_on(dev, warm, trainer, batch, draws)
+        for dev in (cuda, torch.device("cpu")))
+    for k in ("loss", "chamfer", "gfv"):
+        assert chip_smoke._rel(sm[k], ref_m[k]) <= chip_smoke.TOL_RL_LOSS, k
+    _, frozen = chip_smoke.joint_step_on(cuda, warm, trainer, batch, draws,
+                                         lr_scale=0.0)
+    for k in card:
+        update, state, worst, noise = chip_smoke.network_errs(
+            card[k], ref[k], start[k])
+        assert update <= chip_smoke.TOL_JOINT_UPDATE, (k, update)
+        assert state <= chip_smoke.TOL_RL_PARAM, (k, state, worst)
+        assert noise <= 2 * lr, (k, noise)
+        assert chip_smoke.network_errs(frozen[k], ref[k], start[k])[0] > \
+            chip_smoke.TOL_JOINT_UPDATE, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_ae_recon,launches", [(1.0, (4, 4, 2)),
+                                                 (0.0, (2, 2, 1))])
+def test_joint_step_launches_k3_k4_k5(cuda, w_ae_recon, launches):
+    """A joint step on the card runs each bidirectional Chamfer through the
+    kernels: K3 twice forward, K4 twice and K5 once backward (b, the
+    decoded cloud, needs a gradient in one direction); with the AE-path
+    term there are two such losses. On CPU tensors none launches."""
+    from gan_rl_3d_tpu_torch.train import steps
+
+    trainer = _joint_trainer(cuda)
+    kw = dict(chip_smoke._joint_kw(trainer), w_ae_recon=w_ae_recon)
+    names = ("nn_dist", "nn_gather", "nn_scatter")
+    for dev, expect in ((cuda, launches), (torch.device("cpu"), (0, 0, 0))):
+        model = chip_smoke._joint_model(trainer.model, dev)
+        opt = steps.make_joint_optimizer(steps.joint_trainable(model),
+                                         trainer.config.training.joint)
+        batch, draws = chip_smoke.joint_batch(trainer, seed=14, bsz=4)
+        before = [_cuda.launch_counts[n] for n in names]
+        _, m = steps.joint_train_step(model, opt, chip_smoke._on(batch, dev),
+                                      chip_smoke._on(draws, dev), **kw)
+        assert tuple(_cuda.launch_counts[n] - b
+                     for n, b in zip(names, before)) == expect
+        assert bool(torch.isfinite(m["loss"]))
+
+
+@pytest.mark.cuda
+def test_gate_stats_step_on_card_matches_cpu(cuda):
+    """gate_stats_step on a full-width batch of 16 on the card and on CPU
+    copies, the same holes: both paths' Chamfer distances (K3 four times
+    on the card) and the D margins."""
+    from gan_rl_3d_tpu_torch.train import gate as gate_lib
+
+    trainer = _joint_trainer(cuda, seed=15)
+    cpu = torch.device("cpu")
+    batch = {"complete_pc": _clouds(16, 2048, 16)[0],
+             "pad": torch.zeros(16)}
+    draws = chip_smoke._on(trainer._fixed_holes(2, 0, 16, 2048), cpu)
+    model_cpu = {k: chip_smoke._on(trainer.model[k], cpu)
+                 for k in ("ae", "lgan")}
+    model_cpu["agent"] = {"actor": chip_smoke._on(
+        trainer.model["agent"]["actor"], cpu)}
+    kw = dict(cfg=trainer.td3, spec=trainer.preproc)
+    before = _cuda.launch_counts["nn_dist"]
+    out = gate_lib.gate_stats_step(trainer.model, chip_smoke._on(batch, cuda),
+                                   chip_smoke._on(draws, cuda), **kw)
+    assert _cuda.launch_counts["nn_dist"] == before + 4
+    ref = gate_lib.gate_stats_step(model_cpu, batch, draws, **kw)
+    for k in ("cd_rl", "cd_ae"):
+        assert chip_smoke.scaled_err(out[k].cpu(), ref[k]) <= \
+            chip_smoke.TOL_F32, k
+    assert float((out["margin"].cpu() - ref["margin"]).abs().max()) <= \
+        chip_smoke.TOL_GATE_MARGIN * float(ref["margin"].abs().max())
