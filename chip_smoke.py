@@ -38,6 +38,10 @@ Phases, each failing the run if it fails:
      loss finite, K3, K4 and K5 launched, the best checkpoint reloaded;
      then one f32 ``ae_train_step`` at B=8 on the card against the same
      step on the CPU (same weights and draws): loss and every gradient;
+     then mid-phase resume: ``train_rl_gan_net --phase autoencoder
+     --resume autoencoder_epoch_1`` runs epoch index 1 alone from the
+     ``_trainstate`` sibling, whose Adam moments load onto the card bit
+     for bit at the saved step; without the sibling it starts fresh;
      then the serving side on that checkpoint: ``gan_rl_3d_tpu_torch.
      evaluate --checkpoint autoencoder_best --export-engine``, and
      ``complete_clouds --checkpoint`` and ``--engine`` (the exported
@@ -69,7 +73,17 @@ Phases, each failing the run if it fails:
      / ``--engine``, each printing and using the sidecar's gate; K1-K5
      must launch on this path; then one f32 ``joint_train_step`` at B=8
      and one ``gate_stats_step`` on the card against CPU copies;
-  7. times: each kernel (every instance of K1 and K6 at the flagship
+  7. the repo's trained weights, the JAX trainer's orbax directories
+     under runs/best7/probe_lgan30/ckpt_lgan30, copied and read by the
+     port's own reader (zstd, OCDBT, zarr v2; the load seconds printed):
+     350 arrays, ``lgan_best``'s meta, its GFVs against a random init's;
+     the f32, bf16 and int8 engines on ``lgan_best`` at B=64, N=2048
+     against the serving limits, each error beside the random weights';
+     ``evaluate --checkpoint lgan_best --export-engine``,
+     ``complete_clouds --checkpoint`` and ``--engine``; ``joint_checks``
+     on its weights; K1 (f32 and bf16), K6, K2, K3, K4, K5 must launch
+     (the ``trained`` path);
+  8. times: each kernel (every instance of K1 and K6 at the flagship
      widths), its plain version, the least time the card could take
      (bound) and a library yardstick (registers a thread and shared memory
      beside their times; K3 and K2 also as CUDA-graph device time, with
@@ -120,6 +134,18 @@ TOL_BF16 = 2e-2     # bf16 vs its reference, relative to max |ref|
 # clouds within 0.1 of the unfolded complete (test_fused_encoder.py:119-121)
 TOL_INT8_GFV = 2e-2
 TOL_INT8_PC = 0.1
+# on the trained lgan_best the JAX package's own int8 engine reads 2.2749e-2
+# of f32 (tests/test_torch_port_orbax.py::test_trained_int8_engine_matches_
+# jax holds the port's to it): the limit sits just above that reading
+TOL_INT8_GFV_TRAINED = 2.4e-2
+# the int8 engine on the card against the same engine on the CPU, of the
+# largest element: the int32 sums are exact, and only a last-bit difference
+# of a row's f32 scale can move an int8 level (1.165e-6 read on lgan_best)
+TOL_INT8_CARD = 1e-4
+# the repo's trained weights: orbax directories the JAX trainer wrote
+TRAINED_DIR = (Path(__file__).resolve().parent / "runs" / "best7"
+               / "probe_lgan30" / "ckpt_lgan30")
+TRAINED_ARRAYS = 350
 TOL_DIST = 1e-3     # |a|^2+|b|^2-2ab cancellation in f32
 TIE_GAP = 1e-4      # squared-distance gap below which an index may differ
 # K4 vs plain, scaled by max(1, |ref|): K4 rounds as its plain version does
@@ -994,16 +1020,15 @@ def serve_files(inputs, out_dir: Path, args, n_out: int) -> None:
                f"served {src.name} not in the input frame")
 
 
-def phase_main(device, model, tmp: Path):
-    """The completion path at full width, counted launch by launch."""
+def engine_checks(model, target, mask, cfg, int8_gfv_tol=TOL_INT8_GFV):
+    """The three engines of ``model`` against the unfolded ``complete``:
+    the f32 engine within TOL_F32 in every gate mode, the bf16 engine
+    within TOL_BF16 of f32, the int8 engine's GFV within ``int8_gfv_tol``
+    of f32 and its clouds within TOL_INT8_PC of ``complete``. Returns the
+    engines and the largest errors."""
     from gan_rl_3d_tpu_torch.models import inference, rl_gan_net
-    from gan_rl_3d_tpu_torch.ops import _cuda
-    from gan_rl_3d_tpu_torch.ops.metrics import evaluate_completion
 
-    target, mask = make_clouds(B_MAIN, N_MAIN, seed=4, device=device)
-    cfg = _flagship().td3_config()
-    _cuda.launch_counts.clear()
-
+    errs = {"f32": 0.0, "int8_gfv": 0.0, "int8_pc": 0.0}
     engine = inference.prepare_inference_engine(model)
     for mode in ("discriminator", "rl", "ae", "union"):
         ref = rl_gan_net.complete(model, target, mask, cfg=cfg, gate_mode=mode)
@@ -1015,6 +1040,7 @@ def phase_main(device, model, tmp: Path):
                 margin = (ref["rl_gan_score"] - ref["ae_score"])[:, 0].abs()
                 r, f = r[margin > 1e-4], f[margin > 1e-4]
             e = scaled_err(f, r)
+            errs["f32"] = max(errs["f32"], e)
             expect(e <= TOL_F32, f"complete_fast {mode} {k}: err {e:.3e}")
         print(f"complete_fast f32 == complete, gate {mode} "
               f"(hybrid {tuple(fast['hybrid_output'].shape)})")
@@ -1023,12 +1049,12 @@ def phase_main(device, model, tmp: Path):
                                                      dtype=torch.bfloat16)
     f32 = inference.complete_fast(engine, target, mask, gate_mode="rl")
     bf = inference.complete_fast(engine_bf16, target, mask, gate_mode="rl")
-    worst = max(rel_err(bf[k], f32[k]) for k in
-                ("noisy_gfv", "z_vector", "clean_gfv", "completed_pc",
-                 "ae_reconstruction"))
-    print(f"complete_fast bf16 vs f32: max rel err {worst:.3e} "
+    errs["bf16"] = max(rel_err(bf[k], f32[k]) for k in
+                       ("noisy_gfv", "z_vector", "clean_gfv", "completed_pc",
+                        "ae_reconstruction"))
+    print(f"complete_fast bf16 vs f32: max rel err {errs['bf16']:.3e} "
           f"(tol {TOL_BF16:g})")
-    expect(worst <= TOL_BF16, "bf16 engine disagrees with f32")
+    expect(errs["bf16"] <= TOL_BF16, "bf16 engine disagrees with f32")
 
     engine_q = inference.prepare_inference_engine(model, quantize_int8=True)
     for mode in ("discriminator", "rl", "ae", "union"):
@@ -1049,13 +1075,29 @@ def phase_main(device, model, tmp: Path):
             settled = margin > shift
             hq, hr, ties = hq[settled], hr[settled], int((~settled).sum())
         hyb = float((hq - hr).abs().max()) if hq.numel() else 0.0
+        errs["int8_gfv"] = max(errs["int8_gfv"], gfv)
+        errs["int8_pc"] = max(errs["int8_pc"], pc_err, hyb)
         print(f"complete_fast int8, gate {mode}: noisy_gfv vs f32 engine "
-              f"{gfv:.3e} of max (tol {TOL_INT8_GFV:g}); completed_pc / "
+              f"{gfv:.3e} of max (tol {int8_gfv_tol}); completed_pc / "
               f"ae_reconstruction vs complete {pc_err:.3e}, hybrid_output "
               f"{hyb:.3e} (tol {TOL_INT8_PC:g}; {ties} near-tie rows left "
               "out)")
-        expect(gfv <= TOL_INT8_GFV and pc_err <= TOL_INT8_PC
-               and hyb <= TOL_INT8_PC, f"int8 engine disagrees ({mode})")
+        expect(gfv <= int8_gfv_tol and pc_err <= TOL_INT8_PC
+               and hyb <= TOL_INT8_PC,
+               f"int8 engine disagrees ({mode})")
+    return engine, engine_bf16, engine_q, errs
+
+
+def phase_main(device, model, tmp: Path):
+    """The completion path at full width, counted launch by launch."""
+    from gan_rl_3d_tpu_torch.models import inference
+    from gan_rl_3d_tpu_torch.ops import _cuda
+    from gan_rl_3d_tpu_torch.ops.metrics import evaluate_completion
+
+    target, mask = make_clouds(B_MAIN, N_MAIN, seed=4, device=device)
+    _cuda.launch_counts.clear()
+    engine, engine_bf16, engine_q, errs = engine_checks(
+        model, target, mask, _flagship().td3_config())
 
     # serve files through the CLI, as a user would
     eng_path, q_path = tmp / "engine.pkl", tmp / "engine_q.pkl"
@@ -1086,7 +1128,7 @@ def phase_main(device, model, tmp: Path):
     for name in SERVING_KERNELS:
         expect(counts.get(name, 0) > 0, f"{name} never launched on the "
                "serving path")
-    return engine, engine_bf16, engine_q, counts
+    return engine, engine_bf16, engine_q, counts, errs
 
 
 def _flagship():
@@ -1115,7 +1157,11 @@ def phase_train(device, tmp: Path):
             cfg.training, checkpoint_dir=str(tmp / "ckpt"),
             autoencoder=dataclasses.replace(cfg.training.autoencoder,
                                             epochs=2)))
-    trainer = RLGANNetTrainer(cfg, device=device)
+    # a checkpoint and its train state every epoch, for resume_checks; the
+    # later phases keep the recipe's frequency
+    every_epoch = dataclasses.replace(cfg, logging=dataclasses.replace(
+        cfg.logging, save_model_frequency=1))
+    trainer = RLGANNetTrainer(every_epoch, device=device)
     torch.cuda.synchronize()
     _cuda.launch_counts.clear()
     t0 = time.perf_counter()
@@ -1144,7 +1190,78 @@ def phase_train(device, tmp: Path):
                "reloaded checkpoint differs from the trained model")
     print("autoencoder_best reloaded through the port's load_checkpoint")
     step_check(device, trainer.model["ae"])
+    resume_checks(device, tmp, every_epoch)
     return counts, cfg
+
+
+def resume_checks(device, tmp: Path, cfg):
+    """Mid-phase resume on the card: ``train_rl_gan_net --phase autoencoder
+    --resume autoencoder_epoch_1`` in a copy of phase 4's checkpoints runs
+    only epoch index 1 from the restored train state, whose Adam moments,
+    loaded onto the card, equal the saved ones bit for bit, with Adam's
+    step and the schedule at the saved count; with the sibling deleted the
+    same command starts with a fresh optimizer and runs both epochs."""
+    import dataclasses
+    import shutil
+
+    from gan_rl_3d_tpu_torch.convert import load_chain
+    from gan_rl_3d_tpu_torch.train import steps
+    from gan_rl_3d_tpu_torch.train.trainer import RLGANNetTrainer
+    from gan_rl_3d_tpu_torch.train_rl_gan_net import main as train_main
+    from gan_rl_3d_tpu_torch.utils import checkpoint as ckpt_lib
+    from gan_rl_3d_tpu_torch.utils.tree import tree_leaves
+
+    src, ckpt = Path(cfg.training.checkpoint_dir), tmp / "ckpt_resume"
+    ckpt.mkdir()
+    for name in ("autoencoder_epoch_1", "autoencoder_epoch_1_trainstate"):
+        expect((src / name).is_file(), f"phase 4 did not write {name}")
+        shutil.copy(src / name, ckpt / name)
+    cfg = dataclasses.replace(cfg, training=dataclasses.replace(
+        cfg.training, checkpoint_dir=str(ckpt)))
+    cfg_path = tmp / "resume.json"
+    cfg_path.write_text(json.dumps(dataclasses.asdict(cfg)))
+    saved = ckpt_lib.load_checkpoint(str(ckpt / "autoencoder_epoch_1_"
+                                         "trainstate"))
+    adam = saved["opt_state"][1]
+    count = int(adam.count)
+    trainer = RLGANNetTrainer(cfg, device=device)
+    spe = len(trainer.train_loader)
+    expect(count == spe and int(saved["epoch"]) == 0,
+           f"train state: count {count}, epoch {int(saved['epoch'])}")
+    trainer.load_checkpoint("autoencoder_epoch_1")
+    params = trainer.model["ae"]["params"]
+    opt, sched = steps.make_ae_optimizer(params, cfg.training.autoencoder, spe)
+    load_chain(opt, params, trainer._restore_train_state("autoencoder")[
+        "opt_state"], sched)
+    mus, nus = tree_leaves(adam.mu), tree_leaves(adam.nu)
+    same = all(
+        opt.state[p]["exp_avg"].device.type == device.type
+        and float(opt.state[p]["step"]) == count
+        and torch.equal(opt.state[p]["exp_avg"].cpu(), torch.from_numpy(mu))
+        and torch.equal(opt.state[p]["exp_avg_sq"].cpu(),
+                        torch.from_numpy(nu))
+        for p, mu, nu in zip(tree_leaves(params), mus, nus))
+    print(f"autoencoder_epoch_1_trainstate: {len(mus)} Adam moments of "
+          f"{sum(m.size for m in mus)} elements loaded onto the card bit for "
+          f"bit: {same}; step {count}, schedule step {sched.last_epoch}, lr "
+          f"{opt.param_groups[0]['lr']:.6e}")
+    expect(same and sched.last_epoch == count,
+           "restored Adam state differs from the saved one")
+
+    argv = ["--config", str(cfg_path), "--phase", "autoencoder", "--resume",
+            "autoencoder_epoch_1", "--device", device.type]
+    t0 = time.perf_counter()
+    _, out = captured(train_main, argv)
+    epochs = re.findall(r"^AE epoch (\d+)/", out, re.M)
+    print(f"resumed run: epochs {epochs} in {time.perf_counter() - t0:.2f}s")
+    expect("restored autoencoder train state" in out and epochs == ["2"],
+           "the resumed run did not run epoch index 1 alone")
+    (ckpt / "autoencoder_epoch_1_trainstate").unlink()
+    _, out = captured(train_main, argv)
+    epochs = re.findall(r"^AE epoch (\d+)/", out, re.M)
+    print(f"control, the sibling deleted: epochs {epochs}")
+    expect("fresh optimizer" in out and epochs == ["1", "2"],
+           "without its train state the resume did not start fresh")
 
 
 def phase_eval(device, tmp: Path, cfg):
@@ -1193,6 +1310,165 @@ def phase_eval(device, tmp: Path, cfg):
     for name in EVAL_KERNELS:
         expect(counts.get(name, 0) > 0, f"{name} never launched on the "
                "evaluation path")
+    return counts
+
+
+def synthetic_clouds(bsz: int, n: int, seed: int, device) -> tuple:
+    """``bsz`` clouds of the port's synthetic categories
+    (``data/synthetic.py``, in turn), on the unit sphere as the dataset
+    serves them, with masks that cut a random share of each (the padded
+    tail the serving CLI produces)."""
+    from gan_rl_3d_tpu_torch.data.synthetic import (CATEGORIES,
+                                                    generate_synthetic_cloud)
+    from gan_rl_3d_tpu_torch.ops.pointcloud import normalize_unit_sphere
+
+    rng = np.random.RandomState(seed)
+    pc = np.stack([generate_synthetic_cloud(CATEGORIES[i % len(CATEGORIES)],
+                                            n, rng) for i in range(bsz)])
+    keep = rng.randint(n // 2, n + 1, (bsz, 1))
+    mask = (np.arange(n)[None, :] < keep).astype(np.float32)
+    return (normalize_unit_sphere(torch.from_numpy(pc)).to(device)
+            .contiguous(), torch.from_numpy(mask).to(device))
+
+
+def int8_card_vs_cpu(engine_q, tree, target, mask) -> None:
+    """The int8 engine's GFVs on the card against the same engine built
+    and run on the CPU (the plain K6, which equals the JAX package's int8
+    engine): within TOL_INT8_CARD of their largest element."""
+    from gan_rl_3d_tpu_torch.convert import model_from_numpy
+    from gan_rl_3d_tpu_torch.models import inference
+
+    cpu = torch.device("cpu")
+    engine_cpu = inference.prepare_inference_engine(
+        model_from_numpy(tree, device=cpu), quantize_int8=True)
+    card = inference.complete_fast(engine_q, target, mask, gate_mode="rl")
+    ref = inference.complete_fast(engine_cpu, target.cpu(), mask.cpu(),
+                                  gate_mode="rl")
+    errs = {k: rel_err(card[k].cpu(), ref[k])
+            for k in ("noisy_gfv", "clean_gfv")}
+    print("int8 engine card vs CPU: " + ", ".join(
+        f"{k} {e:.3e} of max" for k, e in errs.items())
+        + f" (tol {TOL_INT8_CARD:g})")
+    expect(max(errs.values()) <= TOL_INT8_CARD,
+           "int8 engine: the card disagrees with the CPU")
+
+
+def _count_arrays(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_count_arrays(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_count_arrays(v) for v in tree)
+    return int(isinstance(tree, np.ndarray))
+
+
+def _shapes(tree):
+    from gan_rl_3d_tpu_torch.utils.tree import tree_map
+    return tree_map(np.shape, tree)
+
+
+def phase_trained(device, tmp: Path, cfg, random_errs: dict):
+    """The committed trained checkpoints (the JAX package's orbax
+    directories under runs/, read by the port's own reader from a copy):
+    the load seconds, the tree (350 arrays, lgan_best's meta), the trained
+    GFVs against a random init's; the f32, bf16 and int8 engines on
+    ``lgan_best`` at B=64, N=2048 against the serving limits; ``evaluate
+    --checkpoint lgan_best --export-engine``, ``complete_clouds
+    --checkpoint`` and ``--engine``; one f32 ``joint_train_step`` on its
+    weights, card against CPU (``joint_checks``). Counted launch by
+    launch."""
+    import dataclasses
+    import shutil
+
+    from gan_rl_3d_tpu_torch import evaluate
+    from gan_rl_3d_tpu_torch.convert import model_from_numpy
+    from gan_rl_3d_tpu_torch.models import rl_gan_net
+    from gan_rl_3d_tpu_torch.ops import _cuda
+    from gan_rl_3d_tpu_torch.train.trainer import PHASES, RLGANNetTrainer
+    from gan_rl_3d_tpu_torch.utils import checkpoint as ckpt_lib
+
+    ckpt = tmp / "ckpt_trained"
+    shutil.copytree(TRAINED_DIR, ckpt)
+    torch.cuda.synchronize()
+    _cuda.launch_counts.clear()
+    seconds, trees = {}, {}
+    for name in ("autoencoder_best", "lgan_best"):
+        t0 = time.perf_counter()
+        trees[name] = ckpt_lib.load_model_checkpoint(str(ckpt), name)
+        seconds[name] = time.perf_counter() - t0
+    tree, meta = trees["lgan_best"]
+    print("load_model_checkpoint of the committed orbax checkpoints (the "
+          "port's zstd + OCDBT + zarr reader): " + ", ".join(
+              f"{k} {v:.2f}s" for k, v in seconds.items()))
+    arrays = _count_arrays(tree) + _count_arrays(meta)
+    phase = PHASES[int(meta["phase_idx"])]
+    print(f"lgan_best: {arrays} arrays, epoch {int(meta['epoch'])}, phase "
+          f"{phase}")
+    expect(arrays == TRAINED_ARRAYS and _count_arrays(
+        trees["autoencoder_best"][0]) + 2 == TRAINED_ARRAYS,
+        "a trained checkpoint does not hold 350 arrays")
+    expect((int(meta["epoch"]), phase) == (28, "lgan"), "lgan_best's meta")
+    random_tree = init_numpy_model(_flagship(), seed=0)
+    for k in ("ae", "lgan"):
+        expect(_shapes(tree[k]) == _shapes(random_tree[k]),
+               f"lgan_best's {k} widths are not the flagship's")
+    expect(_shapes(tree["agent"]["actor"])
+           == _shapes(random_tree["agent"]["actor"]),
+           "lgan_best's actor widths are not the flagship's")
+
+    td3 = _flagship().td3_config()
+    model = model_from_numpy(tree, device=device)
+    target, mask = synthetic_clouds(B_MAIN, N_MAIN, seed=90, device=device)
+    gfv = rl_gan_net.complete(model, target, mask, cfg=td3)["noisy_gfv"]
+    rand = rl_gan_net.complete(model_from_numpy(random_tree, device=device),
+                               target, mask, cfg=td3)["noisy_gfv"]
+    moved = rel_err(gfv, rand)
+    print(f"trained GFVs of {B_MAIN} synthetic clouds: finite "
+          f"{bool(torch.isfinite(gfv).all())}, {rel_err(gfv, rand):.3e} of "
+          "their largest element from a random init's")
+    expect(bool(torch.isfinite(gfv).all()) and moved > 1e-2,
+           "trained GFVs are not finite or equal a random init's")
+
+    # TOL_INT8_GFV was set on random weights; the JAX package's own int8
+    # engine reads 2.2749e-2 on these weights and clouds
+    _, _, engine_q, errs = engine_checks(
+        model, target, mask, td3, int8_gfv_tol=TOL_INT8_GFV_TRAINED)
+    print("engines on lgan_best (trained) vs random weights (phase 3): "
+          + ", ".join(f"{k} {errs[k]:.3e} (random {random_errs[k]:.3e})"
+                      for k in ("f32", "bf16", "int8_gfv", "int8_pc")))
+    int8_card_vs_cpu(engine_q, tree, target, mask)
+
+    cfg = dataclasses.replace(cfg, training=dataclasses.replace(
+        cfg.training, checkpoint_dir=str(ckpt),
+        results_dir=str(tmp / "results_trained")))
+    cfg_path = tmp / "trained.json"
+    cfg_path.write_text(json.dumps(dataclasses.asdict(cfg)))
+    engine_path = tmp / "engine_trained.pkl"
+    stats = evaluate.main(["--config", str(cfg_path), "--checkpoint",
+                           "lgan_best", "--num-export", "2",
+                           "--export-engine", str(engine_path), "--device",
+                           device.type])
+    expect(len(stats) >= 5 and all(np.isfinite(v) for v in stats.values()),
+           f"evaluate lgan_best: non-finite or missing metrics {stats}")
+    print("evaluate --checkpoint lgan_best: " + ", ".join(
+        f"{k}={v:.6f}" for k, v in stats.items()))
+    inputs = write_scans(tmp / "scans_trained", seed=91)
+    for args in (["--checkpoint", "lgan_best"],
+                 ["--engine", str(engine_path)]):
+        serve_files(inputs, tmp / f"out_trained_{args[0][2:]}",
+                    [*args, "--config", str(cfg_path), "--device",
+                     device.type], N_MAIN)
+    print(f"complete_clouds --checkpoint lgan_best and --engine served "
+          f"{len(inputs)} files each")
+
+    trainer = RLGANNetTrainer(cfg, device=device)
+    trainer.load_checkpoint("lgan_best")
+    joint_checks(device, trainer)
+    torch.cuda.synchronize()
+    counts = dict(_cuda.launch_counts)
+    print(f"trained-path launches: {counts}")
+    for name in TRAINED_KERNELS:
+        expect(counts.get(name, 0) > 0, f"{name} never launched on the "
+               "trained path")
     return counts
 
 
@@ -2003,6 +2279,11 @@ RL_KERNELS = ("nn_dist",)
 # the exported engine, K2 and K3 in evaluate's metrics
 JOINT_KERNELS = ("nn_dist", "nn_gather", "nn_scatter", "encoder_pool_f32",
                  "nn_min")
+# the trained checkpoint: the three engines (K1 f32, K1 bf16 on the tensor
+# cores, K6), evaluate's metrics (K2, K3) and the joint step (K3-K5)
+TRAINED_KERNELS = ("encoder_pool_f32", "encoder_pool_bf16",
+                   "encoder_pool_int8", "nn_dist", "nn_min", "nn_gather",
+                   "nn_scatter")
 # instances for widths the flagship does not have: run by the checks of
 # phase 2 (and timed at the flagship widths), on no main path
 WIDE_INSTANCES = ("encoder_pool_bf16_wide", "encoder_pool_int8_wide")
@@ -2561,14 +2842,15 @@ def main() -> None:
     errs.update(phase_grad_kernels(device))
     checks = dict(_cuda.launch_counts)
     with tempfile.TemporaryDirectory() as tmp:
-        engine, engine_bf16, engine_q, serving = phase_main(device, model,
-                                                            Path(tmp))
+        engine, engine_bf16, engine_q, serving, random_errs = phase_main(
+            device, model, Path(tmp))
         training, cfg = phase_train(device, Path(tmp))
         evaluation = phase_eval(device, Path(tmp), cfg)
         rl_path, trainer = phase_rl(device, cfg)
         rl_checks(device, trainer)
         joint_path, jtrainer = phase_joint(device, trainer.config, Path(tmp))
         joint_checks(device, jtrainer)
+        trained_path = phase_trained(device, Path(tmp), cfg, random_errs)
     rows = phase_times(device, engine, engine_bf16, engine_q)
     rl_cases = phase_rl_times(device, trainer)
     joint_cases, joint_ms, joint_times = phase_joint_times(device, jtrainer)
@@ -2582,7 +2864,8 @@ def main() -> None:
                    "training": training.get(name, 0),
                    "evaluation": evaluation.get(name, 0),
                    "rl": rl_path.get(name, 0),
-                   "joint": joint_path.get(name, 0)}
+                   "joint": joint_path.get(name, 0),
+                   "trained": trained_path.get(name, 0)}
         expect(name in WIDE_INSTANCES or sum(by_path.values()) > 0,
                f"{name} never launched on a main path")
         expect(checks.get(name, 0) > 0, f"{name} never checked")

@@ -5,8 +5,9 @@ Reads .txt/.pts/.ply/.h5 clouds, runs the completion on the card (or on
 the CPU with ``--device cpu``), and writes PLYs in each input's own
 coordinate frame (the unit-sphere normalisation is inverted on output).
 The model is an exported engine (``--engine``, f32 or int8, through
-``complete_fast``) or a training checkpoint (``--checkpoint NAME`` under
-``training.checkpoint_dir``, through the unfolded ``complete``, with the
+``complete_fast``) or a training checkpoint of either package (``--checkpoint NAME`` under
+``training.checkpoint_dir``, a pickle or an orbax directory, through the
+unfolded ``complete``, with the
 gate calibration sidecar only where it is scoped to that checkpoint).
 Inputs go in fixed-size chunks, the last one padded to the same shape.
 ``--watch DIR`` keeps the model loaded and completes each new file that
@@ -213,9 +214,9 @@ def main(argv=None):
     config = load_config(args.config) if args.config else flagship_config()
     if args.checkpoint:
         path = Path(config.training.checkpoint_dir) / args.checkpoint
-        if not path.is_file():
-            parser.error(f"no pickle checkpoint {path} (an orbax directory "
-                         "needs the reader in ROADMAP.md queue 1, item 1)")
+        if not path.exists():
+            parser.error(f"no checkpoint {path} (a pickle file or an orbax "
+                         "directory)")
     device = resolve_device(args.device)
 
     n_points = config.model.autoencoder.num_points

@@ -5,14 +5,15 @@ path, ``evaluate`` and phases 1-5 (autoencoder, LGAN, RL, joint fine-tune
 with the D refresh and the gate calibration), ``loss``, ``data``,
 ``evaluation`` and ``logging``, with the JAX package's defaults and
 validation (gan_rl_3d_tpu/config.py:29-311). ``load_config`` reads the
-same YAML schema; keys the port does not model yet (the logger's
-backends, the TPU-only training fields) are skipped.
+same YAML schema and, as the JAX package does, logs and skips a key it
+does not know; keys only the JAX package reads are skipped in silence.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
@@ -20,6 +21,7 @@ from gan_rl_3d_tpu_torch.models.rl_agent import TD3Config
 from gan_rl_3d_tpu_torch.ops.pointcloud import PreprocSpec
 
 GATE_MODES = ("discriminator", "rl", "ae", "union")
+log = logging.getLogger(__name__)
 
 
 @dataclass(frozen=True)
@@ -326,32 +328,42 @@ def flagship_config() -> Config:
 _TUPLE_FIELDS = {"encoder_dims", "decoder_dims", "generator_dims",
                  "discriminator_dims", "hidden_dims", "metrics",
                  "fscore_thresholds"}
+# keys the JAX package reads and the port does not, skipped in silence as
+# the reference's redundant ``paths`` block is: the JAX device string (the
+# port's entry points take ``--device``) and its metric backends (the port
+# prints its metrics)
+_JAX_ONLY_KEYS = frozenset({"training.device", "logging.use_tensorboard",
+                            "logging.use_wandb", "logging.project_name"})
 
 
-def _build(cls, raw: Optional[Dict[str, Any]]):
+def _build(cls, raw: Optional[Dict[str, Any]], path: str = ""):
     """Build a dataclass from a raw YAML dict, coercing numeric strings
-    (YAML reads '1e-4' as a string) and skipping keys it does not model."""
+    (YAML reads '1e-4' as a string) and logging the keys it does not
+    know (gan_rl_3d_tpu/config.py:404-415)."""
     if raw is None:
         return cls()
+    fields = {f.name: f for f in dataclasses.fields(cls)}
     kwargs = {}
-    for f in dataclasses.fields(cls):
-        if f.name not in raw:
+    for key, value in raw.items():
+        if key not in fields:
+            if key != "paths" and path + key not in _JAX_ONLY_KEYS:
+                log.warning("config: ignoring unknown key %s%s", path, key)
             continue
-        value = raw[f.name]
+        f = fields[key]
         sub_cls = globals().get(f.type) if isinstance(f.type, str) else f.type
-        if f.name in _TUPLE_FIELDS:
-            kwargs[f.name] = (tuple(value) if isinstance(value, (list, tuple))
-                              else (value,))
+        if key in _TUPLE_FIELDS:
+            kwargs[key] = (tuple(value) if isinstance(value, (list, tuple))
+                           else (value,))
         elif dataclasses.is_dataclass(sub_cls):
-            kwargs[f.name] = _build(sub_cls, value)
+            kwargs[key] = _build(sub_cls, value, f"{path}{key}.")
         elif f.type in (float, "float"):
-            kwargs[f.name] = float(value)
+            kwargs[key] = float(value)
         elif f.type in (bool, "bool"):
-            kwargs[f.name] = bool(value)
+            kwargs[key] = bool(value)
         elif f.type in (int, "int"):
-            kwargs[f.name] = int(value)
+            kwargs[key] = int(value)
         else:
-            kwargs[f.name] = value
+            kwargs[key] = value
     return cls(**kwargs)
 
 

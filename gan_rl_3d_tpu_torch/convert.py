@@ -10,12 +10,16 @@ package's file carries under ``agent.opt``. ``engine_from_numpy`` does
 the same for a folded engine tree, int8 or not; ``model_to_numpy`` and
 ``agent_to_numpy`` map the port's trees back to numpy.
 
-The Adam moments: a JAX file holds per network the optax state (a
-ScaleByAdamState and an EmptyState, read as the stand-ins of
-``utils.checkpoint``); the port writes ``{"count", "mu", "nu"}`` as plain
-numpy, so neither package needs optax to read the other's file. They map
-to torch's Adam state leaf by leaf: count -> step, mu -> exp_avg, nu ->
-exp_avg_sq.
+The optimizer states: optax's ScaleByAdamState maps to torch's Adam
+state leaf by leaf (count -> step, mu -> exp_avg, nu -> exp_avg_sq), the
+parameters in ``tree_leaves`` order, which is optax's. A chain's
+ScaleByScheduleState count is the port's LambdaLR step count. The
+readers take a state as the pickle stand-ins of ``utils.checkpoint`` hold
+it, or as an orbax directory restores it (lists and dicts);
+``agent_to_numpy`` keeps ``opt`` as plain ``{"count", "mu", "nu"}`` per
+network, and ``optax_layout`` turns a model tree into the optax states a
+file carries (``adam_to_optax``, ``chain_to_optax``), which the JAX
+package unpickles as optax's own classes.
 """
 
 from __future__ import annotations
@@ -26,7 +30,12 @@ import torch
 from gan_rl_3d_tpu_torch.device import resolve_device
 from gan_rl_3d_tpu_torch.models import rl_agent as rl
 from gan_rl_3d_tpu_torch.models.inference import cast_engine
-from gan_rl_3d_tpu_torch.utils.checkpoint import to_numpy
+from gan_rl_3d_tpu_torch.train.replay_buffer import FIELDS, ReplayBuffer
+from gan_rl_3d_tpu_torch.utils.checkpoint import (EmptyState,
+                                                 ReplayBufferState,
+                                                 ScaleByAdamState,
+                                                 ScaleByScheduleState,
+                                                 to_numpy)
 from gan_rl_3d_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 _ENGINE_KEYS = ("encoder", "decoder", "generator", "actor", "discriminator")
@@ -100,14 +109,102 @@ def agent_to_numpy(agent: dict) -> dict:
 
 
 def _adam_moments(state) -> dict:
-    """{"count", "mu", "nu"} from the port's dict or from optax's state as
-    the stand-ins read it (a tuple holding a ScaleByAdamState)."""
-    if isinstance(state, dict):
+    """{"count", "mu", "nu"} from the port's dict, from optax's state as
+    the stand-ins read it (a ScaleByAdamState, alone or in a chain's
+    tuple), or as orbax restores it (a dict, alone or in a list)."""
+    if isinstance(state, dict) and "mu" in state:
         return state
-    for part in state:
-        if hasattr(part, "mu"):
-            return {"count": part.count, "mu": part.mu, "nu": part.nu}
+    if hasattr(state, "mu") and hasattr(state, "nu"):  # optax's or a stand-in
+        return {"count": state.count, "mu": state.mu, "nu": state.nu}
+    if isinstance(state, (list, tuple)):
+        for part in state:
+            try:
+                return _adam_moments(part)
+            except ValueError:
+                continue
     raise ValueError("no Adam moments in the optimizer state")
+
+
+def _schedule_count(state) -> int:
+    """The ScaleByScheduleState count of an optax chain's state."""
+    for part in state:
+        if isinstance(part, dict) and set(part) == {"count"}:
+            return int(np.asarray(part["count"]))
+        if getattr(part, "_fields", None) == ("count",):  # a named tuple
+            return int(np.asarray(part.count))
+    raise ValueError("no schedule count in the optimizer state")
+
+
+def load_adam(opt: torch.optim.Optimizer, params, state) -> int:
+    """Load an optax Adam state (``_adam_moments`` reads any layout) into
+    ``opt``, a torch Adam over ``tree_leaves(params)``; the count."""
+    m = _adam_moments(state)
+    count = int(np.asarray(m["count"]))
+    leaves = tree_leaves(params)
+    mus, nus = tree_leaves(m["mu"]), tree_leaves(m["nu"])
+    if not len(leaves) == len(mus) == len(nus):
+        raise ValueError(f"optimizer state has {len(mus)} moments for "
+                         f"{len(leaves)} parameters")
+    opt.state.clear()
+    if count == 0:
+        return 0
+    for p, mu, nu in zip(leaves, mus, nus):
+        if tuple(np.shape(mu)) != tuple(p.shape):
+            raise ValueError(f"Adam moment of shape {np.shape(mu)} for a "
+                             f"parameter of shape {tuple(p.shape)}")
+        opt.state[p] = {"step": torch.tensor(float(count)),
+                        "exp_avg": _leaf(mu, p.device),
+                        "exp_avg_sq": _leaf(nu, p.device)}
+    return count
+
+
+def load_chain(opt: torch.optim.Optimizer, params, state,
+               scheduler: "torch.optim.lr_scheduler.LambdaLR | None" = None
+               ) -> int:
+    """Load an optax chain state (add_decayed_weights, scale_by_adam,
+    scale_by_learning_rate(schedule); gan_rl_3d_tpu/train/steps.py:80-84,
+    688-692) into ``opt`` and, when given, set ``scheduler`` to the
+    chain's schedule count; the Adam count."""
+    count = load_adam(opt, params, state)
+    if scheduler is not None:
+        n = _schedule_count(state)
+        scheduler.last_epoch = n
+        for group, base, fn in zip(opt.param_groups, scheduler.base_lrs,
+                                   scheduler.lr_lambdas):
+            group["lr"] = base * fn(n)
+        scheduler._last_lr = [g["lr"] for g in opt.param_groups]
+    return count
+
+
+def adam_to_optax(opt: torch.optim.Optimizer, params) -> tuple:
+    """A torch Adam's state as optax.adam's, (ScaleByAdamState,
+    EmptyState) as stand-ins."""
+    m = _adam_to_numpy(opt, params)
+    return ScaleByAdamState(m["count"], m["mu"], m["nu"]), EmptyState()
+
+
+def chain_to_optax(opt: torch.optim.Optimizer, params,
+                   scheduler: "torch.optim.lr_scheduler.LambdaLR | None" = None
+                   ) -> tuple:
+    """The state of optax.chain(add_decayed_weights, scale_by_adam,
+    scale_by_learning_rate(schedule)): the schedule's count is
+    ``scheduler``'s, or the Adam count where the lr is constant."""
+    adam, _ = adam_to_optax(opt, params)
+    count = adam.count if scheduler is None else np.int32(
+        scheduler.last_epoch)
+    return EmptyState(), adam, ScaleByScheduleState(count)
+
+
+def optax_layout(model_np: dict) -> dict:
+    """A numpy model tree with the agent's ``opt`` as optax.adam's state
+    per network, (ScaleByAdamState, EmptyState), as the JAX package's
+    agent carries it (gan_rl_3d_tpu/models/rl_agent.py)."""
+    agent = model_np.get("agent", {})
+    if "opt" not in agent:
+        return model_np
+    opt = {name: (ScaleByAdamState(m["count"], m["mu"], m["nu"]),
+                  EmptyState()) for name, m in agent["opt"].items()}
+    return {**model_np, "agent": {**agent, "opt": opt}}
 
 
 def agent_from_numpy(tree: dict, cfg: rl.TD3Config, *,
@@ -121,18 +218,35 @@ def agent_from_numpy(tree: dict, cfg: rl.TD3Config, *,
         cfg, dev)
     for name in rl.NETWORKS:
         agent[name + "_target"] = tree_from_numpy(tree[name + "_target"], dev)
-        m = _adam_moments(tree["opt"][name])
-        count = int(np.asarray(m["count"]))
-        if count == 0:
-            continue
-        opt = agent["opt"][name]
-        for p, mu, nu in zip(tree_leaves(agent[name]["params"]),
-                             tree_leaves(m["mu"]), tree_leaves(m["nu"])):
-            opt.state[p] = {"step": torch.tensor(float(count)),
-                            "exp_avg": _leaf(mu, dev),
-                            "exp_avg_sq": _leaf(nu, dev)}
+        load_adam(agent["opt"][name], agent[name]["params"],
+                  tree["opt"][name])
     agent["step"] = int(np.asarray(tree["step"]))
     return agent
+
+
+def buffer_to_numpy(buffer: ReplayBuffer) -> ReplayBufferState:
+    """The replay ring in the JAX package's layout (its ReplayBuffer, as
+    the stand-in): the tensors, ``ptr`` and ``size`` as int32."""
+    return ReplayBufferState(
+        *(to_numpy(getattr(buffer, name)) for name in FIELDS),
+        ptr=np.int32(buffer.ptr), size=np.int32(buffer.size))
+
+
+def buffer_from_numpy(state, buffer: ReplayBuffer) -> ReplayBuffer:
+    """Fill ``buffer`` (of the same capacity and widths) from the JAX
+    layout: the stand-in, or the dict an orbax directory restores."""
+    get = state.get if isinstance(state, dict) else (
+        lambda k: getattr(state, k))
+    for name in FIELDS:
+        value = np.asarray(get(name), np.float32)
+        dst = getattr(buffer, name)
+        if value.shape != tuple(dst.shape):
+            raise ValueError(f"replay buffer {name} of shape {value.shape}, "
+                             f"expected {tuple(dst.shape)}")
+        dst.copy_(torch.from_numpy(value))
+    buffer.ptr = int(np.asarray(get("ptr")))
+    buffer.size = int(np.asarray(get("size")))
+    return buffer
 
 
 def engine_from_numpy(tree: dict, *, device: str | torch.device = "cuda",

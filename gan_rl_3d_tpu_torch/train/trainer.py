@@ -16,18 +16,27 @@ K3, with a greedy eval on a fixed, evenly spread validation batch. Phase
 5.5 (``post_joint_refresh``) retrains D on the post-joint GFVs and
 calibrates the gate on the val split, writing ``gate_calibration.json``.
 ``train_full_pipeline`` runs the curriculum, restarting at the phase a
-loaded checkpoint records, and ends with ``final``. The best and periodic
-checkpoints are written in the JAX package's pickle layout. The
-``_trainstate`` siblings of the periodic checkpoints (every phase's
-optimizer moments, the RL buffer, ``joint_epoch_N_trainstate`` too) and
-mid-phase resume from them are a later item (ROADMAP queue 1, item 15):
-``--resume`` loads the model and the phase starts from its first epoch.
+loaded checkpoint records, and ends with ``final``.
+
+The best and periodic checkpoints are written in the JAX package's pickle
+layout; ``load_checkpoint`` reads either package's, pickle or orbax
+directory. A periodic checkpoint carries a ``<name>_trainstate`` sibling
+with the JAX package's fields and optax layout (trainer.py:246,394,503,
+593): the AE and joint optimizer states with ``best_val`` and ``epoch``,
+the LGAN's two with ``best_g`` and ``epoch``, the RL phase's replay ring
+and OU state with ``best_avg`` and ``it`` (the agent's Adam rides in the
+model). Resuming from such a checkpoint (``load_checkpoint``, then the
+phase) restores the sibling once, into the phase the checkpoint records,
+and continues at the next epoch or iteration; the RL phase replays its
+data-sampling draws to that iteration. As in the JAX package, nothing
+else is replayed: the loader's permutations and the device generator
+start from the seed, so a resumed run follows the JAX package's resumed
+run, not an uninterrupted one (trainer.py:814-831).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import shutil
 import time
 from pathlib import Path
 from typing import Dict, Optional, Tuple
@@ -36,8 +45,12 @@ import numpy as np
 import torch
 
 from gan_rl_3d_tpu_torch.config import Config, load_config
-from gan_rl_3d_tpu_torch.convert import (agent_from_numpy, model_from_numpy,
-                                         model_to_numpy, tree_from_numpy)
+from gan_rl_3d_tpu_torch.convert import (adam_to_optax, agent_from_numpy,
+                                         buffer_from_numpy, buffer_to_numpy,
+                                         chain_to_optax, load_adam,
+                                         load_chain, model_from_numpy,
+                                         model_to_numpy, optax_layout,
+                                         tree_from_numpy)
 from gan_rl_3d_tpu_torch.data.dataset import (BatchLoader, ShapeNetDataset,
                                               setup_dataset)
 from gan_rl_3d_tpu_torch.device import resolve_device
@@ -98,6 +111,9 @@ class RLGANNetTrainer:
         self.gate_report: Optional[dict] = None
         self.epoch = 0  # the last AE epoch trained in this run
         self.current_phase = "autoencoder"  # set by load_checkpoint
+        # set by load_checkpoint, consumed by the phase it names
+        # (_restore_train_state)
+        self._resume: Optional[dict] = None
         # whether this run calibrated the gate: a sidecar of an earlier run
         # must not stay scoped to a checkpoint this run overwrites
         self._gate_calibrated = False
@@ -160,9 +176,15 @@ class RLGANNetTrainer:
         optimizer, scheduler = steps.make_ae_optimizer(
             params, cfg, len(self.train_loader))
         best_val = float("inf")
+        start_epoch = 0
+        rst = self._restore_train_state("autoencoder")
+        if rst is not None:
+            load_chain(optimizer, params, rst["opt_state"], scheduler)
+            best_val = float(rst["best_val"])
+            start_epoch = int(rst["epoch"]) + 1
         eval_freq = max(self.config.evaluation.eval_frequency, 1)
         data = self._resident_train_data()
-        for epoch in range(num_epochs):
+        for epoch in range(start_epoch, num_epochs):
             t0 = time.time()
             order, pads = self.train_loader.epoch_indices()
             bn_state, m = steps.ae_train_epoch(
@@ -190,8 +212,13 @@ class RLGANNetTrainer:
                 best_val = val_loss
                 self.save_checkpoint("autoencoder_best", epoch, "autoencoder")
             if (epoch + 1) % self._save_freq == 0:
-                self.save_checkpoint(f"autoencoder_epoch_{epoch + 1}", epoch,
-                                     "autoencoder")
+                self.save_checkpoint(
+                    f"autoencoder_epoch_{epoch + 1}", epoch, "autoencoder",
+                    train_state={
+                        "opt_state": chain_to_optax(optimizer, params,
+                                                    scheduler),
+                        "best_val": np.float32(best_val),
+                        "epoch": np.int32(epoch)})
         print(f"AE done; best val loss {best_val:.6f}")
         return best_val
 
@@ -304,11 +331,18 @@ class RLGANNetTrainer:
                                          cfg.generator_lr, cfg)
         d_opt = steps.make_gan_optimizer(params["discriminator"],
                                          cfg.discriminator_lr, cfg)
+        best_g = float("inf")
+        start_epoch = 0
+        rst = self._restore_train_state("lgan")
+        if rst is not None:
+            load_adam(g_opt, params["generator"], rst["g_opt_state"])
+            load_adam(d_opt, params["discriminator"], rst["d_opt_state"])
+            best_g = float(rst["best_g"])
+            start_epoch = int(rst["epoch"]) + 1
         rng = np.random.RandomState(self.config.training.seed)
         n = len(gfvs)
         d_steps = max(cfg.d_steps, 1)
-        best_g = float("inf")
-        for epoch in range(num_epochs):
+        for epoch in range(start_epoch, num_epochs):
             t0 = time.time()
             order = rng.permutation(n)
             g_losses, d_losses = [], []
@@ -336,7 +370,14 @@ class RLGANNetTrainer:
                 best_g = g_loss
                 self.save_checkpoint("lgan_best", epoch, "lgan")
             if (epoch + 1) % self._save_freq == 0:
-                self.save_checkpoint(f"lgan_epoch_{epoch + 1}", epoch, "lgan")
+                self.save_checkpoint(
+                    f"lgan_epoch_{epoch + 1}", epoch, "lgan", train_state={
+                        "g_opt_state": adam_to_optax(
+                            g_opt, params["generator"]),
+                        "d_opt_state": adam_to_optax(
+                            d_opt, params["discriminator"]),
+                        "best_g": np.float32(best_g),
+                        "epoch": np.int32(epoch)})
         self.save_checkpoint("lgan_final", num_epochs - 1, "lgan")
         print(f"LGAN done; best G loss {best_g:.6f}")
         return best_g
@@ -387,6 +428,16 @@ class RLGANNetTrainer:
         eval_every = max(1, iters // 20)
         best_avg = float("-inf")
         rewards = []
+        start_it = 0
+        rst = self._restore_train_state("rl_agent")
+        if rst is not None:
+            buffer_from_numpy(rst["buffer"], buffer)
+            ou = torch.from_numpy(np.asarray(rst["ou"], np.float32)).to(
+                self.device)
+            best_avg = float(rst["best_avg"])
+            start_it = int(rst["it"]) + 1
+            for _ in range(start_it):  # replay the data-sampling draws
+                rng.randint(0, len(data), size=envs)
 
         def log_eval(episode):
             m = steps.rl_eval_reward(self.model, eval_batch, eval_draws,
@@ -397,8 +448,8 @@ class RLGANNetTrainer:
             print(f"  eval reward (greedy, fixed batch) @ep {episode}: "
                   f"{r:.4f}  chamfer {cd:.4f}")
 
-        log_eval(0)
-        for it in range(iters):
+        log_eval(start_it * envs)
+        for it in range(start_it, iters):
             idx = torch.from_numpy(rng.randint(0, len(data), size=envs))
             batch = {"complete_pc": data[idx.to(self.device)],
                      "pad": torch.zeros(envs, device=self.device)}
@@ -431,8 +482,11 @@ class RLGANNetTrainer:
                     self.save_checkpoint("rl_agent_best", episode,
                                          "rl_agent")
             if (it + 1) % self._save_freq == 0:
-                self.save_checkpoint(f"rl_agent_episode_{episode}", episode,
-                                     "rl_agent")
+                self.save_checkpoint(
+                    f"rl_agent_episode_{episode}", episode, "rl_agent",
+                    train_state={"buffer": buffer_to_numpy(buffer), "ou": ou,
+                                 "best_avg": np.float32(best_avg),
+                                 "it": np.int32(it)})
         self.save_checkpoint("rl_agent_final", num_episodes, "rl_agent")
         print(f"RL done; best avg reward {best_avg:.4f}")
         return best_avg
@@ -473,14 +527,20 @@ class RLGANNetTrainer:
         for v in tree_leaves(trainable):
             v.requires_grad_(True)
         optimizer = steps.make_joint_optimizer(trainable, cfg)
+        best_val = float("inf")
+        start_epoch = 0
+        rst = self._restore_train_state("joint")
+        if rst is not None:
+            load_chain(optimizer, trainable, rst["opt_state"])
+            best_val = float(rst["best_val"])
+            start_epoch = int(rst["epoch"]) + 1
         step_kw = dict(
             cfg=self.td3, compute_dtype=self.compute_dtype, spec=self.preproc,
             bidirectional=self.bidirectional, w_ae_recon=cfg.w_ae_recon,
             selective=self.precision_selective, bn_stats=self.bn_stats,
             freeze_generator=cfg.freeze_generator)
-        best_val = float("inf")
         data = self._resident_train_data()
-        for epoch in range(num_epochs):
+        for epoch in range(start_epoch, num_epochs):
             t0 = time.time()
             order, pads = self.train_loader.epoch_indices()
             self.model, m = steps.joint_train_epoch(
@@ -498,8 +558,11 @@ class RLGANNetTrainer:
                 best_val = val_loss
                 self.save_checkpoint("joint_best", epoch, "joint")
             if (epoch + 1) % self._save_freq == 0:
-                self.save_checkpoint(f"joint_epoch_{epoch + 1}", epoch,
-                                     "joint")
+                self.save_checkpoint(
+                    f"joint_epoch_{epoch + 1}", epoch, "joint", train_state={
+                        "opt_state": chain_to_optax(optimizer, trainable),
+                        "best_val": np.float32(best_val),
+                        "epoch": np.int32(epoch)})
         print(f"Joint done; best val loss {best_val:.6f}")
         return best_val
 
@@ -609,6 +672,7 @@ class RLGANNetTrainer:
         if not (t.refresh_d_steps > 0 or t.calibrate_gate):
             return
         self.load_checkpoint("joint_best")
+        self._resume = None  # not a mid-phase resume
         if t.refresh_d_steps > 0:
             self.refresh_discriminator(t.refresh_d_steps)
         if t.calibrate_gate:
@@ -645,39 +709,42 @@ class RLGANNetTrainer:
     # checkpoints
     # ------------------------------------------------------------------
 
-    def save_checkpoint(self, name: str, epoch: int, phase: str) -> None:
+    def save_checkpoint(self, name: str, epoch: int, phase: str,
+                        train_state: Optional[dict] = None) -> None:
         """{"model": {"ae", "lgan", "agent"}, "meta": {"epoch",
         "phase_idx"}} as a pickle of numpy arrays, the JAX trainer's layout
         (trainer.py:735-778 with use_orbax=False): the agent whole, with
-        its targets, step and Adam moments (``convert.agent_to_numpy``). A
-        ``gan_path`` snapshot goes to the ``<name>_ganpath`` sibling, and a
-        stale sibling, file or directory (an orbax run's), is removed.
-        Unless this run calibrated the gate, ``name`` is first taken out of
-        a gate sidecar's scope."""
-        path = self.checkpoint_dir / name
+        its targets, step and optax Adam states. A ``gan_path`` snapshot
+        goes to the ``<name>_ganpath`` sibling and ``train_state`` to the
+        ``<name>_trainstate`` sibling. Whatever stands at those three paths
+        goes first, file or directory (a JAX orbax run's, resumed in
+        place), so a sibling this save does not write outlives no
+        checkpoint it belonged to. Unless this run calibrated the gate,
+        ``name`` is first taken out of a gate sidecar's scope."""
         if not self._gate_calibrated:
             gate_lib.descope_gate_calibration(str(self.checkpoint_dir), name)
         model = dict(self.model)
         gan_path = model.pop("gan_path", None)
-        ckpt_lib.save_checkpoint(
-            str(path), {"model": model_to_numpy(model),
-                        "meta": {"epoch": np.int32(epoch),
-                                 "phase_idx": np.int32(PHASES.index(phase))}})
-        sibling = path.parent / (name + "_ganpath")
-        if sibling.is_dir():
-            shutil.rmtree(sibling)
-        elif sibling.exists():
-            sibling.unlink()
+        main = {"model": optax_layout(model_to_numpy(model)),
+                "meta": {"epoch": np.int32(epoch),
+                         "phase_idx": np.int32(PHASES.index(phase))}}
         if gan_path is not None:
-            ckpt_lib.save_checkpoint(str(sibling), model_to_numpy(gan_path))
+            gan_path = model_to_numpy(gan_path)
+        for suffix, tree in (("", main), ("_ganpath", gan_path),
+                             ("_trainstate", train_state)):
+            path = self.checkpoint_dir / (name + suffix)
+            ckpt_lib.remove_checkpoint(path)
+            if tree is not None:
+                ckpt_lib.save_checkpoint(str(path), tree)
 
     def load_checkpoint(self, name: str) -> Tuple[int, str]:
         """Restore the model (``ae``, ``lgan``, the agent and the
-        ``<name>_ganpath`` sibling when there is one) from a pickle
-        checkpoint of this package or the JAX package. The agent comes back
-        whole: networks, targets, step and Adam moments. The checkpoint's
-        phase becomes ``current_phase``, where ``train_full_pipeline``
-        restarts."""
+        ``<name>_ganpath`` sibling when there is one) from a checkpoint of
+        this package or the JAX package, pickle or orbax directory. The
+        agent comes back whole: networks, targets, step and Adam moments.
+        The checkpoint's phase becomes ``current_phase``, where
+        ``train_full_pipeline`` restarts, and that phase restores the
+        ``<name>_trainstate`` sibling when it starts."""
         model, meta = ckpt_lib.load_model_checkpoint(str(self.checkpoint_dir),
                                                      name)
         cpu = torch.device("cpu")
@@ -690,6 +757,25 @@ class RLGANNetTrainer:
         epoch = int(meta["epoch"])
         phase = PHASES[int(meta["phase_idx"])]
         self.current_phase = phase
+        self._resume = {"name": name, "phase": phase, "epoch": epoch}
         print(f"loaded checkpoint {self.checkpoint_dir / name} "
               f"(epoch {epoch}, phase {phase})")
         return epoch, phase
+
+    def _restore_train_state(self, phase: str) -> Optional[dict]:
+        """The ``_trainstate`` sibling of the checkpoint last loaded, when
+        it is ``phase``'s and exists (pickle or orbax directory, either
+        package's), as a numpy tree; consumed once, so a later phase
+        starts fresh (trainer.py:814-831)."""
+        if not self._resume or self._resume["phase"] != phase:
+            return None
+        resume, self._resume = self._resume, None
+        path = self.checkpoint_dir / (resume["name"] + "_trainstate")
+        if not path.exists():
+            print(f"no train state at {path}: {phase} starts from its first "
+                  "epoch with a fresh optimizer")
+            return None
+        state = ckpt_lib.load_checkpoint(str(path))
+        print(f"restored {phase} train state from {path} "
+              f"(epoch {resume['epoch']})")
+        return state

@@ -1,4 +1,5 @@
 """Nested dict/list trees of tensors, the port's stand-in for JAX pytrees.
+Tuples and named tuples (optax states) are nodes too.
 
 Dict keys are visited in sorted order, as ``jax.tree`` flattens them.
 """
@@ -14,10 +15,17 @@ def tree_map(fn: Callable, tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
+        return _rebuild(tree, [tree_map(fn, v) for v in tree])
     if tree is None:
         return None
     return fn(tree)
+
+
+def _rebuild(seq, items: list):
+    """A list, tuple or named tuple of ``seq``'s type holding ``items``."""
+    if hasattr(seq, "_fields"):
+        return type(seq)(*items)
+    return type(seq)(items)
 
 
 def tree_leaves(tree: Any) -> List[Any]:
@@ -40,7 +48,7 @@ def tree_unflatten(like: Any, leaves: List[Any]) -> Any:
             built = {k: build(tree[k]) for k in sorted(tree)}
             return {k: built[k] for k in tree}
         if isinstance(tree, (list, tuple)):
-            return type(tree)(build(v) for v in tree)
+            return _rebuild(tree, [build(v) for v in tree])
         if tree is None:
             return None
         return next(it)

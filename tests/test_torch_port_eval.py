@@ -107,7 +107,7 @@ def test_checkpoint_reader_refuses_other_classes_and_orbax(tmp_path):
     with pytest.raises(ValueError, match="numpy arrays only"):
         tckpt.load_checkpoint(str(tmp_path / "evil"))
     (tmp_path / "orbax_dir").mkdir()
-    with pytest.raises(ValueError, match="orbax"):
+    with pytest.raises(ValueError, match="_METADATA"):
         tckpt.load_checkpoint(str(tmp_path / "orbax_dir"))
     with pytest.raises(FileNotFoundError):
         tckpt.load_model_checkpoint(str(tmp_path), "missing")

@@ -479,7 +479,7 @@ def test_cli_trains_phases_one_to_four_and_the_checkpoints_cross(tmp_path):
     assert int(tree["meta"]["phase_idx"]) == 2
     agent = tree["model"]["agent"]
     assert int(agent["step"]) == 10
-    assert int(agent["opt"]["critic1"]["count"]) == 10
+    assert int(agent["opt"]["critic1"][0].count) == 10
     pc = clouds(seed=23, bsz=3)
     jcfg_td3 = small_config().td3_config()
     ref = jnet.complete(tree["model"], pc, cfg=jcfg_td3)
