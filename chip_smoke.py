@@ -96,7 +96,27 @@ Phases, each failing the run if it fails:
      ``agent_update`` and ``rl_step``, with K3's share of the RL step;
      per ``joint_train_step`` at B=64 in f32 and bf16_selective with its
      trace and K3/K4/K5's share, per D refresh step, per
-     ``gate_stats_step`` batch.
+     ``gate_stats_step`` batch; per variant ``ae_train_step`` (the
+     attention encoder and adaptive decoder) at B=64 in f32 and
+     bf16_selective with its trace, per unfolded variant ``complete`` at
+     B=64 and B=4096;
+  9. the variant family (runs/variant/config_variant.yaml's model block:
+     the attention encoder, the adaptive decoder with its refinement) at
+     the flagship widths, random weights from seed 0: the whole
+     curriculum through ``train_rl_gan_net --phase full --profile`` at
+     the recipe (bf16_selective) cut as the joint path is (AE 1 epoch of
+     2 steps at B=64, 1 LGAN epoch of 8 steps, 2 RL iterations, joint 1
+     epoch of 2 steps, 16 D refresh steps); its metrics.jsonl holds the
+     AE/*, GAN/*, RL/*, Joint/* tags, its profile names K3's kernel,
+     ``final`` and the gate sidecar are written; ``final`` served by
+     ``complete_clouds --checkpoint`` and ``evaluate``; K3, K4, K5 and
+     K2 must launch (the ``variant`` path); the engine fold and
+     ``--export-pth`` refuse the family; one f32 variant
+     ``ae_train_step`` and ``joint_checks`` on its ``final``, card
+     against CPU from Adam moments one step old, lr 0 failing; then the
+     reference .pth bridge on the joint path's ``final``: ``evaluate
+     --export-pth``, ``load_reference_checkpoint``, ``complete`` bit for
+     bit on the card.
 
 The next-to-last line is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}. Any failure raises and exits
@@ -222,6 +242,13 @@ TRACE_RL = 2        # rl_steps traced (64 updates each)
 JOINT_EPOCHS = 1
 JOINT_REFRESH = 16
 TRACE_JOINT = 5     # joint_train_steps traced per precision
+# the variant family (runs/variant/config_variant.yaml's model block) at
+# the flagship widths through the whole curriculum, cut as the joint path:
+# 2 RL iterations (128 transitions, under the recipe's 256 before the
+# first TD3 update)
+VARIANT_TYPES = {"encoder_type": "attention", "decoder_type": "adaptive"}
+VARIANT_RL_ITERS = 2
+TRACE_VARIANT = 5   # variant ae_train_steps traced per precision
 
 
 # ---------------------------------------------------------------------------
@@ -418,6 +445,14 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
 def phase_device():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -426,10 +461,7 @@ def phase_device():
     from gan_rl_3d_tpu_torch.ops import _cuda
 
     device = resolve_device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
@@ -1791,9 +1823,10 @@ def adam_noise(path, tree) -> bool:
     """Whether the leaf at ``path`` of ``tree`` (a network's params, state
     or Adam moments) is one Adam makes noise of: the bias of a dense layer
     that feeds a training BatchNorm (a ``bn_mlp`` block with a "bn" entry;
-    the critic's state_fc, comb_fc1, comb_fc2) and the BN running means
-    that take it in. tests/test_torch_port_rl.py and
-    tests/test_torch_port_lgan.py hold the same leaves loosely."""
+    the adaptive decoder's refinement conv1; the critic's state_fc,
+    comb_fc1, comb_fc2) and the BN running means that take it in.
+    tests/test_torch_port_rl.py and tests/test_torch_port_lgan.py hold the
+    same leaves loosely."""
     if path[-1] == "mean":
         return True
     if path[-1] != "b":
@@ -1803,7 +1836,7 @@ def adam_noise(path, tree) -> bool:
     node = tree
     for k in path[:-2]:
         node = node[k]
-    return path[-2] == "dense" and "bn" in node
+    return path[-2] in ("dense", "conv1") and "bn" in node
 
 
 def network_errs(card: dict, cpu: dict, start: dict) -> tuple:
@@ -2248,6 +2281,314 @@ def joint_checks(device, trainer):
     expect(cd <= TOL_F32 and me <= TOL_GATE_MARGIN,
            "gate_stats_step: the card disagrees with the CPU")
 
+# ---------------------------------------------------------------------------
+# the attention-encoder / adaptive-decoder family
+# ---------------------------------------------------------------------------
+
+
+def _variant_config(cfg, tmp: Path):
+    """The recipe with runs/variant/config_variant.yaml's model block (the
+    attention encoder, the adaptive decoder; the flagship's widths) and
+    the joint path's cuts: 1 AE epoch (2 steps at B=64), 1 LGAN epoch,
+    VARIANT_RL_ITERS RL iterations, the joint block as JOINT_EPOCHS /
+    JOINT_REFRESH; its checkpoints, metrics and report under ``tmp``."""
+    import dataclasses
+
+    t = cfg.training
+    return dataclasses.replace(
+        cfg,
+        model=dataclasses.replace(cfg.model, autoencoder=dataclasses.replace(
+            cfg.model.autoencoder, **VARIANT_TYPES)),
+        training=dataclasses.replace(
+            t, checkpoint_dir=str(tmp / "ckpt_variant"),
+            log_dir=str(tmp / "logs_variant"),
+            results_dir=str(tmp / "results_variant"),
+            autoencoder=dataclasses.replace(t.autoencoder, epochs=1),
+            lgan=dataclasses.replace(t.lgan, epochs=1),
+            rl_agent=dataclasses.replace(
+                t.rl_agent,
+                episodes=VARIANT_RL_ITERS * t.rl_agent.envs_per_step),
+            joint=dataclasses.replace(t.joint, epochs=JOINT_EPOCHS,
+                                      refresh_d_steps=JOINT_REFRESH)))
+
+
+def _profile_names_k3(folder: Path) -> bool:
+    """Whether the one Chrome trace under ``folder`` holds a device
+    kernel event of K3 (``nn_kernel``)."""
+    (trace,) = folder.glob("*.pt.trace.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    return any(e.get("cat") == "kernel"
+               and _is_kernel(e.get("name", ""), "nn_kernel")
+               for e in events)
+
+
+def phase_variant(device, cfg, tmp: Path):
+    """The variant family at full width, counted launch by launch as one
+    path: the whole curriculum through the CLI (``--phase full
+    --profile``, bf16_selective), then ``final`` served
+    (``complete_clouds --checkpoint final``, ``evaluate --checkpoint
+    final``). Checks the metrics log's AE/*, GAN/*, RL/* and Joint/*
+    tags, the profile naming K3, ``final`` and its gate sidecar, the
+    engine fold's and ``--export-pth``'s refusals. Returns the counts and
+    a trainer holding ``final``."""
+    import dataclasses
+
+    from gan_rl_3d_tpu_torch import evaluate, train_rl_gan_net
+    from gan_rl_3d_tpu_torch.models import inference
+    from gan_rl_3d_tpu_torch.ops import _cuda
+    from gan_rl_3d_tpu_torch.train import gate as gate_lib
+    from gan_rl_3d_tpu_torch.train.trainer import RLGANNetTrainer
+
+    cfg = _variant_config(cfg, tmp)
+    ckpt, logs = Path(cfg.training.checkpoint_dir), Path(cfg.training.log_dir)
+    cfg_path = tmp / "variant.json"
+    cfg_path.write_text(json.dumps(dataclasses.asdict(cfg)))
+    torch.cuda.synchronize()
+    _cuda.launch_counts.clear()
+    t0 = time.perf_counter()
+    train_rl_gan_net.main(["--config", str(cfg_path), "--phase", "full",
+                           "--profile", "--device", device.type])
+    torch.cuda.synchronize()
+    print(f"variant: train_rl_gan_net --phase full --profile "
+          f"({cfg.training.precision}, AE 1 epoch, LGAN 1 epoch, "
+          f"{VARIANT_RL_ITERS} RL iterations, joint {JOINT_EPOCHS} epoch, "
+          f"{JOINT_REFRESH} D refresh steps) in "
+          f"{time.perf_counter() - t0:.2f}s with the trace")
+    records = [json.loads(line) for line in
+               (logs / "metrics.jsonl").read_text().splitlines()]
+    tags = sorted({r["tag"] for r in records})
+    print(f"variant metrics.jsonl: {len(records)} records, tags {tags}")
+    expect(all(any(tag.startswith(g) for tag in tags)
+               for g in ("AE/", "GAN/", "RL/", "Joint/"))
+           and all(np.isfinite(r["value"]) for r in records),
+           f"variant metrics log: tags {tags}")
+    expect(_profile_names_k3(logs / "profile"),
+           "the variant run's profile names no K3 kernel")
+    for name in ("final", "joint_calibrated", gate_lib.GATE_FILE):
+        expect((ckpt / name).is_file(), f"variant: {name} was not written")
+    expect(json.loads((ckpt / gate_lib.GATE_FILE).read_text())["checkpoints"]
+           == ["joint_calibrated", "final"], "variant gate sidecar scope")
+
+    inputs = write_scans(tmp / "scans_variant", seed=9)
+    serve_files(inputs, tmp / "out_variant", ["--checkpoint", "final",
+                                              "--config", str(cfg_path),
+                                              "--device", device.type],
+                N_MAIN)
+    t0 = time.perf_counter()
+    stats = evaluate.main(["--config", str(cfg_path), "--checkpoint",
+                           "final", "--num-export", "2", "--device",
+                           device.type])
+    expect(len(stats) >= 5 and all(np.isfinite(v) for v in stats.values()),
+           f"variant evaluate --checkpoint final: {stats}")
+    print(f"variant evaluate --checkpoint final in "
+          f"{time.perf_counter() - t0:.2f}s: " + ", ".join(
+              f"{k}={v:.6f}" for k, v in stats.items()))
+    torch.cuda.synchronize()
+    counts = dict(_cuda.launch_counts)
+    print(f"variant-path launches (--phase full, serving final): {counts}")
+    for name in VARIANT_KERNELS:
+        expect(counts.get(name, 0) > 0, f"{name} never launched on the "
+               "variant path")
+
+    trainer = RLGANNetTrainer(cfg, device=device)
+    trainer.load_checkpoint("final")
+    for what, fn in (
+            ("prepare_inference_engine",
+             lambda: inference.prepare_inference_engine(trainer.model)),
+            ("evaluate --export-pth", lambda: evaluate.main([
+                "--config", str(cfg_path), "--checkpoint", "final",
+                "--export-pth", str(tmp / "variant.pth"), "--device",
+                device.type]))):
+        try:
+            fn()
+        except ValueError as e:
+            print(f"variant {what} refused: {e}")
+        else:
+            raise AssertionError(f"variant {what} was not refused")
+    expect(not (tmp / "variant.pth").exists(), "variant .pth written")
+    return counts, trainer
+
+
+def pth_checks(device, tmp: Path) -> None:
+    """The reference .pth bridge on the card, on the joint path's
+    calibrated ``final`` (the PointNet family, which the reference layout
+    holds): ``evaluate --checkpoint final --export-pth`` writes the pair,
+    ``load_reference_checkpoint`` reads it back, and ``complete`` on it
+    equals ``complete`` on the checkpoint bit for bit on the card."""
+    from gan_rl_3d_tpu_torch import evaluate
+    from gan_rl_3d_tpu_torch.config import load_config
+    from gan_rl_3d_tpu_torch.convert import model_from_numpy
+    from gan_rl_3d_tpu_torch.models import rl_gan_net as net
+    from gan_rl_3d_tpu_torch.utils import checkpoint as ckpt_lib
+    from gan_rl_3d_tpu_torch.utils.torch_convert import (
+        load_reference_checkpoint)
+
+    cfg_path = tmp / "joint.json"
+    cfg = load_config(str(cfg_path))
+    pth = tmp / "final.pth"
+    evaluate.main(["--config", str(cfg_path), "--checkpoint", "final",
+                   "--metrics", "chamfer_distance", "--export-pth", str(pth),
+                   "--device", device.type])
+    bundle = load_reference_checkpoint(str(pth))
+    move = lambda tree: _on(tree, device)  # noqa: E731
+    served = {"ae": move(bundle["ae"]), "lgan": move(bundle["lgan"]),
+              "agent": {"actor": move(bundle["agent_networks"]["actor"])}}
+    tree, _ = ckpt_lib.load_model_checkpoint(cfg.training.checkpoint_dir,
+                                             "final")
+    model = model_from_numpy(tree, device=device)
+    pc, mask = make_clouds(B_MAIN, N_MAIN, seed=80, device=device)
+    ref = net.complete(model, pc, mask, cfg=cfg.td3_config())
+    out = net.complete(served, pc, mask, cfg=cfg.td3_config())
+    same = all(torch.equal(out[k], ref[k]) for k in ref)
+    print(f"reference .pth pair {pth.name} (+ the _rl_agent sibling, "
+          f"{len(bundle['agent_networks'])} agent networks): complete on it "
+          f"vs the checkpoint at B={B_MAIN}: "
+          f"{'bit for bit' if same else 'DIFFERENT'} on {device}")
+    expect(same, "complete on the .pth bridge's model differs")
+
+
+def variant_ae_warm(trainer, seed):
+    """The variant AE {"params", "state"} on the CPU after one f32
+    ``ae_train_step`` from the trainer's, and its Adam's state (moments
+    one step old, as joint_warm)."""
+    from gan_rl_3d_tpu_torch.train import steps
+    cpu = torch.device("cpu")
+    ae = trainer.model["ae"]
+    params, state = _on(ae["params"], cpu, grad=True), _on(ae["state"], cpu)
+    opt, _ = steps.make_ae_optimizer(params, trainer.config.training
+                                     .autoencoder, 1)
+    state, _ = steps.ae_train_step(params, state, opt,
+                                   *joint_batch(trainer, seed),
+                                   **_ae_kw(trainer))
+    return {"params": params, "state": state}, opt.state_dict()
+
+
+def _ae_kw(trainer):
+    return dict(spec=trainer.preproc, bn_stats=trainer.bn_stats,
+                recon_loss=trainer.recon_loss,
+                bidirectional=trainer.bidirectional)
+
+
+def variant_ae_step_on(dev, warm, trainer, batch, draws, lr_scale=1.0):
+    """One f32 ``ae_train_step`` on ``dev`` from ``variant_ae_warm``'s
+    weights and Adam state, lr times ``lr_scale``: (metrics, {"encoder",
+    "decoder"} each {"params", "state"})."""
+    import copy
+
+    from gan_rl_3d_tpu_torch.train import steps
+    ac = trainer.config.training.autoencoder
+    params, state = _on(warm[0]["params"], dev, grad=True), _on(
+        warm[0]["state"], dev)
+    opt, _ = steps.make_ae_optimizer(params, ac, 1)
+    opt.load_state_dict(copy.deepcopy(warm[1]))
+    for group in opt.param_groups:
+        group["lr"] = ac.lr * lr_scale
+    state, m = steps.ae_train_step(params, state, opt, _on(batch, dev),
+                                   _on(draws, dev), **_ae_kw(trainer))
+    return m, {k: {"params": params[k], "state": state[k]}
+               for k in ("encoder", "decoder")}
+
+
+def variant_checks(device, trainer):
+    """One f32 variant ``ae_train_step`` at B=8, full width, on the card and
+    on CPU copies from the same weights, draws and Adam moments one step
+    old: the loss within TOL_RL_LOSS, each network's update within
+    TOL_RL_UPDATE of the CPU's in the 2-norm, its state within
+    TOL_RL_PARAM; lr 0 and twice the lr on the card must fail. Then
+    ``joint_checks`` on the variant's ``final``."""
+    cpu = torch.device("cpu")
+    lr = trainer.config.training.autoencoder.lr
+    warm = variant_ae_warm(trainer, seed=90)
+    start = {k: {p: warm[0][p][k] for p in ("params", "state")}
+             for k in ("encoder", "decoder")}
+    batch, draws = joint_batch(trainer, seed=91)
+    (sm, card), (ref_m, ref) = (variant_ae_step_on(dev, warm, trainer, batch,
+                                                   draws)
+                                for dev in (device, cpu))
+    le = _rel(sm["loss"], ref_m["loss"])
+    errs = {k: network_errs(card[k], ref[k], start[k]) for k in card}
+    tol_noise = 2 * lr
+    print(f"variant ae_train_step f32 B={B_STEP_CHECK}: card vs CPU, loss "
+          f"{float(sm['loss']):.6f} / {float(ref_m['loss']):.6f} ({le:.3e}, "
+          f"tol {TOL_RL_LOSS:g}); {_errs_text(errs)} ({_TOL_TEXT}, "
+          f"Adam-noise leaves {tol_noise:g} absolute)")
+    shifted = dict(batch, complete_pc=batch["complete_pc"] * (1.0 + 1e-7))
+    _, floor = variant_ae_step_on(cpu, warm, trainer, shifted, draws)
+    print("variant ae_train_step CPU against itself with the input clouds "
+          "scaled by 1 + 1e-7: update error " + ", ".join(
+              f"{k} {network_errs(floor[k], ref[k], start[k])[0]:.3e}"
+              for k in ref))
+    expect(le <= TOL_RL_LOSS and _errs_ok(errs.values(), tol_noise),
+           "variant ae_train_step: the card disagrees with the CPU")
+    for scale in (0.0, 2.0):
+        _, wrong = variant_ae_step_on(device, warm, trainer, batch, draws,
+                                      lr_scale=scale)
+        power = {k: network_errs(wrong[k], ref[k], start[k])[0]
+                 for k in card}
+        print(f"variant ae_train_step with lr x {scale:g} on the card: "
+              "update error " + ", ".join(f"{k} {e:.3e}"
+                                          for k, e in power.items())
+              + f" (must exceed {TOL_RL_UPDATE:g})")
+        expect(min(power.values()) > TOL_RL_UPDATE, "variant ae_train_step: "
+               f"the update check passes a step with lr x {scale:g}")
+    joint_checks(device, trainer)
+
+
+def phase_variant_times(device, card: str):
+    """ms per variant ``ae_train_step`` at B=64, full width, in f32 and
+    bf16_selective, and per unfolded ``complete`` at B=64 and B=4096,
+    random weights from seed 0, by CUDA events (before any trace of the
+    process). Returns the steps as cases for ``trace_rl_steps``."""
+    import dataclasses
+
+    from gan_rl_3d_tpu_torch.models import rl_gan_net as net
+    from gan_rl_3d_tpu_torch.ops import pointcloud as pc_ops
+    from gan_rl_3d_tpu_torch.train import steps
+
+    cfg = _flagship()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, autoencoder=dataclasses.replace(cfg.model.autoencoder,
+                                                   **VARIANT_TYPES)))
+    model = net.init_model(torch.Generator().manual_seed(0), cfg, device)
+    params = _on(model["ae"]["params"], device, grad=True)
+    state = {"s": model["ae"]["state"]}
+    opt, _ = steps.make_ae_optimizer(params, cfg.training.autoencoder, 2)
+    pc, mask = make_clouds(B_MAIN, N_MAIN, seed=17, device=device)
+    batch = {"complete_pc": pc, "pad": torch.zeros(B_MAIN, device=device)}
+    draws = pc_ops.draw_training_batch(
+        torch.Generator(device=device).manual_seed(18), B_MAIN, N_MAIN)
+
+    def ae_step(precision):
+        dtype, selective = steps.compute_dtype_of(precision)
+        state["s"], _ = steps.ae_train_step(
+            params, state["s"], opt, batch, draws, compute_dtype=dtype,
+            selective=selective, bn_stats=cfg.training.bn_stats)
+
+    cases = tuple((f"variant ae_train_step {p} B={B_MAIN}",
+                   (lambda p=p: ae_step(p)), 10, TRACE_VARIANT)
+                  for p in ("float32", "bf16_selective"))
+    ms = {}
+    for name, fn, reps, _ in cases:
+        ms[name] = timed_ms(fn, reps=reps, repeats=3)
+        print(f"{name}: {ms[name]:.3f} ms a step, "
+              f"{B_MAIN / (ms[name] / 1e3):.1f} clouds/s ({card})")
+    td3 = cfg.td3_config()
+    for bsz in (B_MAIN, B_BIG):
+        big, big_mask = make_clouds(bsz, N_MAIN, seed=19, device=device)
+        out = net.complete(model, big, big_mask, cfg=td3)
+        expect(out["hybrid_output"].shape == (bsz, N_MAIN, 3)
+               and bool(torch.isfinite(out["hybrid_output"]).all()),
+               f"variant complete B={bsz}: non-finite or misshapen output")
+        t = ms[f"variant complete B={bsz}"] = timed_ms(
+            lambda: net.complete(model, big, big_mask, cfg=td3), reps=5,
+            repeats=3)
+        print(f"variant complete (unfolded) B={bsz}: {t:.3f} ms a call, "
+              f"{bsz / (t / 1e3):.1f} clouds/s ({card})")
+        del big, big_mask, out
+    torch.cuda.synchronize()
+    return cases, ms
+
+
 KERNELS = {
     "encoder_pool_f32": ("gan_rl_3d_tpu_torch/csrc/encoder_pool.cu",
                          "gan_rl_3d_tpu/ops/encoder_kernel.py:151"),
@@ -2279,6 +2620,10 @@ RL_KERNELS = ("nn_dist",)
 # the exported engine, K2 and K3 in evaluate's metrics
 JOINT_KERNELS = ("nn_dist", "nn_gather", "nn_scatter", "encoder_pool_f32",
                  "nn_min")
+# the variant family: the AE, joint and gate Chamfer losses (K3 forward,
+# K4/K5 backward), the RL reward (K3), evaluate's metrics (K2, K3); it
+# folds into no engine, so no K1 or K6
+VARIANT_KERNELS = ("nn_dist", "nn_gather", "nn_scatter", "nn_min")
 # the trained checkpoint: the three engines (K1 f32, K1 bf16 on the tensor
 # cores, K6), evaluate's metrics (K2, K3) and the joint step (K3-K5)
 TRAINED_KERNELS = ("encoder_pool_f32", "encoder_pool_bf16",
@@ -2841,22 +3186,31 @@ def main() -> None:
                              model, quantize_int8=True))
     errs.update(phase_grad_kernels(device))
     checks = dict(_cuda.launch_counts)
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        tmp = Path(tmp_dir)
         engine, engine_bf16, engine_q, serving, random_errs = phase_main(
-            device, model, Path(tmp))
-        training, cfg = phase_train(device, Path(tmp))
-        evaluation = phase_eval(device, Path(tmp), cfg)
+            device, model, tmp)
+        training, cfg = phase_train(device, tmp)
+        evaluation = phase_eval(device, tmp, cfg)
         rl_path, trainer = phase_rl(device, cfg)
         rl_checks(device, trainer)
-        joint_path, jtrainer = phase_joint(device, trainer.config, Path(tmp))
+        joint_path, jtrainer = phase_joint(device, trainer.config, tmp)
         joint_checks(device, jtrainer)
-        trained_path = phase_trained(device, Path(tmp), cfg, random_errs)
-    rows = phase_times(device, engine, engine_bf16, engine_q)
-    rl_cases = phase_rl_times(device, trainer)
-    joint_cases, joint_ms, joint_times = phase_joint_times(device, jtrainer)
-    rows.update(phase_train_times(device))
-    step_rows = trace_rl_steps(*rl_cases)
-    joint_rows = trace_rl_steps(joint_cases, joint_ms)
+        trained_path = phase_trained(device, tmp, cfg, random_errs)
+        # every time is taken before the first trace of the process
+        rows = phase_times(device, engine, engine_bf16, engine_q)
+        rl_cases = phase_rl_times(device, trainer)
+        joint_cases, joint_ms, joint_times = phase_joint_times(device,
+                                                               jtrainer)
+        variant_cases, variant_ms = phase_variant_times(device, card_line())
+        rows.update(phase_train_times(device))
+        step_rows = trace_rl_steps(*rl_cases)
+        joint_rows = trace_rl_steps(joint_cases, joint_ms)
+        variant_rows = trace_rl_steps(variant_cases, variant_ms)
+        # the variant path's run is profiled whole (--profile): last
+        variant_path, vtrainer = phase_variant(device, cfg, tmp)
+        variant_checks(device, vtrainer)
+        pth_checks(device, tmp)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -2865,7 +3219,8 @@ def main() -> None:
                    "evaluation": evaluation.get(name, 0),
                    "rl": rl_path.get(name, 0),
                    "joint": joint_path.get(name, 0),
-                   "trained": trained_path.get(name, 0)}
+                   "trained": trained_path.get(name, 0),
+                   "variant": variant_path.get(name, 0)}
         expect(name in WIDE_INSTANCES or sum(by_path.values()) > 0,
                f"{name} never launched on a main path")
         expect(checks.get(name, 0) > 0, f"{name} never checked")
@@ -2887,6 +3242,9 @@ def main() -> None:
         for k in kernels))
     print("rl steps: " + json.dumps(step_rows))
     print("joint steps: " + json.dumps({**joint_rows, **joint_times}))
+    print(f"variant steps ({card_line()}): " + json.dumps(
+        {**variant_rows, **{k: v for k, v in variant_ms.items()
+                            if "complete" in k}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

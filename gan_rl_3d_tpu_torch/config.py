@@ -232,6 +232,11 @@ class EvaluationConfig:
 
 @dataclass(frozen=True)
 class LoggingConfig:
+    # metric backends beside the JSONL file (utils.metrics_logging); each
+    # degrades to a warning where its package is not installed
+    use_tensorboard: bool = True
+    use_wandb: bool = False
+    project_name: str = "RL-GAN-Net"
     log_frequency: int = 100
     save_model_frequency: int = 10
 
@@ -322,7 +327,9 @@ def flagship_config() -> Config:
         evaluation=EvaluationConfig(metrics=(
             "chamfer_distance", "completion_ratio", "hausdorff_distance",
             "f_score", "emd")),
-        logging=LoggingConfig(log_frequency=100, save_model_frequency=20))
+        logging=LoggingConfig(use_tensorboard=False, use_wandb=False,
+                              project_name="RL-GAN-Net-TPU",
+                              log_frequency=100, save_model_frequency=20))
 
 
 _TUPLE_FIELDS = {"encoder_dims", "decoder_dims", "generator_dims",
@@ -330,10 +337,8 @@ _TUPLE_FIELDS = {"encoder_dims", "decoder_dims", "generator_dims",
                  "fscore_thresholds"}
 # keys the JAX package reads and the port does not, skipped in silence as
 # the reference's redundant ``paths`` block is: the JAX device string (the
-# port's entry points take ``--device``) and its metric backends (the port
-# prints its metrics)
-_JAX_ONLY_KEYS = frozenset({"training.device", "logging.use_tensorboard",
-                            "logging.use_wandb", "logging.project_name"})
+# port's entry points take ``--device``)
+_JAX_ONLY_KEYS = frozenset({"training.device"})
 
 
 def _build(cls, raw: Optional[Dict[str, Any]], path: str = ""):
@@ -367,10 +372,13 @@ def _build(cls, raw: Optional[Dict[str, Any]], path: str = ""):
     return cls(**kwargs)
 
 
-def load_config(path: Optional[str] = None) -> Config:
-    """Load a gan_rl_3d_tpu YAML config (the reference schema). A ``.json``
-    file, which is YAML too, is read with the json module, so a config
-    written as JSON loads where PyYAML is not installed."""
+def load_config(path: Optional[str] = None,
+                overrides: Optional[Dict[str, Any]] = None) -> Config:
+    """Load a gan_rl_3d_tpu YAML config (the reference schema), with
+    ``overrides`` (a nested dict of the same schema) merged over it key by
+    key (config.py:434-448). A ``.json`` file, which is YAML too, is read
+    with the json module, so a config written as JSON loads where PyYAML
+    is not installed."""
     raw: Dict[str, Any] = {}
     if path is not None:
         with open(path) as f:
@@ -380,6 +388,8 @@ def load_config(path: Optional[str] = None) -> Config:
                 import yaml
 
                 raw = yaml.safe_load(f) or {}
+    if overrides:
+        raw = _deep_merge(raw, overrides)
     c = _build(Config, raw)
     if c.model.rl_agent.action_dim != c.model.lgan.z_dim:
         raise ValueError(
@@ -387,3 +397,15 @@ def load_config(path: Optional[str] = None) -> Config:
             f"must equal model.lgan.z_dim ({c.model.lgan.z_dim}); set both "
             "when changing the latent action space")
     return c
+
+
+def _deep_merge(base: Dict, extra: Dict) -> Dict:
+    """``base`` with ``extra`` merged in: nested dicts merge, any other
+    value replaces (config.py:454-461)."""
+    out = dict(base)
+    for k, v in extra.items():
+        if isinstance(v, dict) and isinstance(out.get(k), dict):
+            out[k] = _deep_merge(out[k], v)
+        else:
+            out[k] = v
+    return out

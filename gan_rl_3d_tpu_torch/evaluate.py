@@ -1,11 +1,17 @@
 """Evaluate a trained model on the test split (the port of the root
 ``evaluate.py``): the configured metrics (chamfer / hausdorff / completion
 ratio / f-score / EMD), colored PLY exports of the first batch, a static
-results page and, on request, the folded f32 deployment engine.
+results page and, on request, the folded f32 deployment engine and the
+reference implementation's ``.pth`` pair (``utils.torch_convert``).
 
   python -m gan_rl_3d_tpu_torch.evaluate --config configs/config.yaml \
       --checkpoint joint_best [--num-export 6] [--export-engine engine.pkl] \
-      [--device cuda|cpu]
+      [--export-pth model.pth] [--device cuda|cpu]
+
+The attention encoder / adaptive decoder family evaluates through the
+unfolded ``complete`` like the other; it has neither an engine nor a
+``.pth`` layout, so ``--export-engine`` and ``--export-pth`` refuse it
+before the evaluation runs.
 
 Holes are cut by ``make_training_batch(do_augment=False)`` with draws from
 one generator seeded 123, batch after batch, so a run is repeatable; the
@@ -30,7 +36,7 @@ from gan_rl_3d_tpu_torch.models.rl_agent import TD3Config
 from gan_rl_3d_tpu_torch.ops import pointcloud as pc_ops
 from gan_rl_3d_tpu_torch.ops.metrics import evaluate_completion
 from gan_rl_3d_tpu_torch.train.gate import load_gate_calibration
-from gan_rl_3d_tpu_torch.utils import ply
+from gan_rl_3d_tpu_torch.utils import ply, torch_convert
 
 Tensor = torch.Tensor
 HOLE_SEED = 123
@@ -53,7 +59,9 @@ def _parser() -> argparse.ArgumentParser:
                    help="also fold the model into an f32 deployment engine "
                         "and save it at this path")
     p.add_argument("--export-pth", type=str, default=None,
-                   help="not ported yet (reference .pth export)")
+                   help="also write the model as the reference "
+                        "implementation's .pth pair at this path (and "
+                        "*_rl_agent.pth)")
     p.add_argument("--ablate-z", action="store_true",
                    help="also report completion chamfer for the z policies "
                         "rl / zero / random / ae-only / hybrid")
@@ -108,10 +116,6 @@ def ablation_outputs(model: dict, incomplete: Tensor, mask: Tensor, *,
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     args = _parser().parse_args(argv)
-    if args.export_pth:
-        raise NotImplementedError(
-            "--export-pth is not ported yet (ROADMAP.md queue 1, item 15; "
-            "its counterpart is gan_rl_3d_tpu/utils/torch_convert.py)")
     from gan_rl_3d_tpu_torch.train.trainer import RLGANNetTrainer
 
     config = load_config(args.config) if args.config else flagship_config()
@@ -120,6 +124,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     if args.checkpoint:
         trainer.load_checkpoint(args.checkpoint)
     model = trainer.model
+    if args.export_pth:
+        torch_convert.check_reference_layout(model["ae"]["params"])
+    if args.export_engine:
+        inference.check_foldable(model["ae"]["params"])
     td3 = config.td3_config()
 
     gate_mode, gate_bias = load_gate_calibration(
@@ -194,6 +202,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
         inference.save_engine(args.export_engine,
                               inference.prepare_inference_engine(model))
         print(f"deployment engine: {args.export_engine}")
+    if args.export_pth:
+        rl_path = torch_convert.export_reference_checkpoint(
+            model, args.export_pth, epoch=trainer.epoch or 0, phase="joint")
+        print(f"reference .pth pair: {args.export_pth} (+ {rl_path})")
+    trainer.close()
     return stats
 
 

@@ -81,6 +81,23 @@ def cast_engine(engine: dict, dtype: torch.dtype) -> dict:
     return out
 
 
+def check_foldable(ae_params: dict) -> None:
+    """Raise ValueError unless the autoencoder folds into an engine: the
+    attention encoder's data-dependent pooling and the adaptive decoder's
+    residual refinement do not (inference.py:99-108); ``complete`` serves
+    them."""
+    if "attention" in ae_params["encoder"]:
+        raise ValueError(
+            "inference engine folding supports the pointnet encoder; the "
+            "attention variant's data-dependent pooling cannot fold - use "
+            "models.rl_gan_net.complete")
+    if "mlp" not in ae_params["decoder"]:
+        raise ValueError(
+            "inference engine folding supports the MLP decoder; the "
+            "adaptive variant's residual refinement cannot fold - use "
+            "models.rl_gan_net.complete")
+
+
 @torch.no_grad()
 def prepare_inference_engine(model: dict, *,
                              dtype: torch.dtype = torch.float32,
@@ -91,10 +108,7 @@ def prepare_inference_engine(model: dict, *,
     encoder, which ``complete_fast`` runs instead of ``encoder.layers``;
     the tail stays in ``dtype``."""
     ae_p, ae_s = model["ae"]["params"], model["ae"]["state"]
-    if "attention" in ae_p["encoder"] or "mlp" not in ae_p["decoder"]:
-        raise ValueError(
-            "inference engine folding supports the pointnet encoder and the "
-            "MLP decoder; use models.rl_gan_net.complete for the variants")
+    check_foldable(ae_p)
     lg_p, lg_s = model["lgan"]["params"], model["lgan"]["state"]
     actor = model["agent"]["actor"]
     engine = {

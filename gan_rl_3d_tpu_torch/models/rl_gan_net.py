@@ -54,13 +54,15 @@ def init_model(generator: torch.Generator, config,
 
 
 def encode(model: dict, pc: Tensor, mask: Optional[Tensor] = None) -> Tensor:
-    return ae.encoder_apply(model["ae"]["params"]["encoder"],
-                            model["ae"]["state"]["encoder"], pc, mask)
+    """Eval-mode GFV of either encoder (rl_gan_net.py:66-70)."""
+    return ae.any_encoder_apply(model["ae"]["params"]["encoder"],
+                                model["ae"]["state"]["encoder"], pc, mask)[0]
 
 
 def decode(model: dict, gfv: Tensor) -> Tensor:
-    return ae.decoder_apply(model["ae"]["params"]["decoder"],
-                            model["ae"]["state"]["decoder"], gfv)
+    """Eval-mode cloud of either decoder (rl_gan_net.py:73-77)."""
+    return ae.any_decoder_apply(model["ae"]["params"]["decoder"],
+                                model["ae"]["state"]["decoder"], gfv)[0]
 
 
 def generate(model: dict, z: Tensor) -> Tensor:
@@ -82,8 +84,8 @@ def gan_decode(model: dict, gfv: Tensor) -> Tensor:
     """Decoder of the serving GAN branch (rl_gan_net.py:111-120)."""
     snap = model.get("gan_path")
     if snap is not None:
-        return ae.decoder_apply(snap["decoder"]["params"],
-                                snap["decoder"]["state"], gfv)
+        return ae.any_decoder_apply(snap["decoder"]["params"],
+                                    snap["decoder"]["state"], gfv)[0]
     return decode(model, gfv)
 
 

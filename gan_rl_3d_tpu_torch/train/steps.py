@@ -42,6 +42,16 @@ from gan_rl_3d_tpu_torch.utils.tree import tree_leaves, tree_map
 Tensor = torch.Tensor
 
 
+def _check_finite(value: Tensor, what: str) -> None:
+    """Under torch's anomaly mode (``train_rl_gan_net --debug-nans``, the
+    JAX CLI's jax_debug_nans) raise FloatingPointError where ``value``, a
+    step's loss before its backward pass, holds a NaN or an inf: a host
+    sync. Anomaly mode itself names a backward op that makes one.
+    Nothing otherwise."""
+    if torch.is_anomaly_enabled() and not bool(torch.isfinite(value).all()):
+        raise FloatingPointError(f"non-finite {what}: {value.detach().cpu()}")
+
+
 def _masked_mean(per_sample: Tensor, pad: Tensor) -> Tensor:
     """Mean over real rows, leaving out the wrap-around padded rows."""
     w = 1.0 - pad
@@ -88,16 +98,20 @@ def _policy_cast(tree, dtype):
 
 
 def _policy_cast_ae_selective(tree, dtype):
-    """bf16 everywhere except the decoder's last (coordinate) layer and the
-    encoder's last point-MLP layer (the GFV bottleneck), which stay f32
-    (steps.py:93-117)."""
+    """bf16 everywhere except the MLP decoder's last (coordinate) layer and
+    the encoder's last point-MLP layer (the GFV bottleneck), which stay f32
+    (steps.py:93-117). The adaptive decoder has no ``mlp`` and is cast
+    whole; the attention encoder keeps its last point-MLP layer f32."""
     cast = _policy_cast(tree, dtype)
-    dec = list(cast["decoder"]["mlp"])
-    dec[-1] = tree["decoder"]["mlp"][-1]
-    enc = list(cast["encoder"]["point_mlp"])
-    enc[-1] = tree["encoder"]["point_mlp"][-1]
-    return {**cast, "decoder": {**cast["decoder"], "mlp": dec},
-            "encoder": {**cast["encoder"], "point_mlp": enc}}
+    if "decoder" in tree and "mlp" in tree["decoder"]:
+        dec = list(cast["decoder"]["mlp"])
+        dec[-1] = tree["decoder"]["mlp"][-1]
+        cast = {**cast, "decoder": {**cast["decoder"], "mlp": dec}}
+    if "encoder" in tree and "point_mlp" in tree["encoder"]:
+        enc = list(cast["encoder"]["point_mlp"])
+        enc[-1] = tree["encoder"]["point_mlp"][-1]
+        cast = {**cast, "encoder": {**cast["encoder"], "point_mlp": enc}}
+    return cast
 
 
 def compute_dtype_of(precision: str) -> Tuple[Optional[torch.dtype], bool]:
@@ -135,6 +149,7 @@ def ae_train_step(params: dict, bn_state: dict, optimizer: torch.optim.Adam,
     per = _recon_loss(recon, complete, recon_loss=recon_loss,
                       bidirectional=bidirectional)
     loss = _masked_mean(per, batch["pad"])
+    _check_finite(loss, "AE loss")
     loss.backward()
     optimizer.step()
     if scheduler is not None:
@@ -199,8 +214,8 @@ def gfv_extract_step(params: dict, bn_state: dict, batch: Dict[str, Tensor],
     complete, incomplete, mask = pc_ops.apply_training_batch(
         batch["complete_pc"], draws, spec=spec, do_augment=False)
     enc_p, enc_s = params["encoder"], bn_state["encoder"]
-    return (ae.encoder_apply(enc_p, enc_s, complete),
-            ae.encoder_apply(enc_p, enc_s, incomplete, mask))
+    return (ae.any_encoder_apply(enc_p, enc_s, complete)[0],
+            ae.any_encoder_apply(enc_p, enc_s, incomplete, mask)[0])
 
 
 # ---------------------------------------------------------------------------
@@ -270,6 +285,7 @@ def lgan_d_step(lgan_params: dict, lgan_state: dict, d_opt: torch.optim.Adam,
         draws["alpha"], real_gfv, fake, lambda_gp=lambda_gp)
     w_loss = losses_ops.discriminator_loss(real_scores, fake_scores)
     d_loss = w_loss + gp
+    _check_finite(d_loss, "D loss")
     grad_step(d_opt, d_loss, d_params)
     return ({"generator": gen_state, "discriminator": d_s2},
             {"d_loss": d_loss.detach(), "wasserstein": -w_loss.detach(),
@@ -288,6 +304,7 @@ def lgan_generator_step(lgan_params: dict, lgan_state: dict,
         lgan_params["discriminator"], lgan_state["discriminator"], fake,
         training=True, keep_masks=draws["keep"])
     g_loss = losses_ops.generator_loss(scores)
+    _check_finite(g_loss, "G loss")
     grad_step(g_opt, g_loss, lgan_params["generator"])
     return ({"generator": g_state, "discriminator": d_state},
             {"g_loss": g_loss.detach()})
@@ -392,6 +409,7 @@ def rl_step(model: dict, buffer: ReplayBuffer, ou_states: Tensor,
                                 env_next.state, done[:, None]))
             rewards.append(r)
             env = env_next
+        _check_finite(torch.stack(rewards), "RL reward")
         buffer.add_batch(rl.TransitionBatch(
             *(torch.cat(f) for f in zip(*transitions))))
     zero = torch.zeros((), device=ou.device)
@@ -401,6 +419,7 @@ def rl_step(model: dict, buffer: ReplayBuffer, ou_states: Tensor,
             _, metrics = rl.agent_update(
                 model["agent"], buffer.sample(draws["sample"][u]),
                 draws["noise"][u], cfg)
+            _check_finite(metrics["critic_loss"], "critic loss")
     metrics = dict(metrics, reward=_masked_mean(torch.stack(rewards).sum(0),
                                                 batch["pad"]))
     return model, buffer, ou, metrics
@@ -511,6 +530,7 @@ def joint_train_step(model: dict, optimizer: torch.optim.Optimizer,
     if w_ae_recon > 0.0:
         loss = loss + w_ae_recon * _masked_mean(chamfer.chamfer_distance(
             ae_recon, complete, bidirectional=bidirectional), batch["pad"])
+    _check_finite(loss, "joint loss")
     loss.backward()
     optimizer.step()
     lgan = model["lgan"]

@@ -16,7 +16,13 @@ K3, with a greedy eval on a fixed, evenly spread validation batch. Phase
 5.5 (``post_joint_refresh``) retrains D on the post-joint GFVs and
 calibrates the gate on the val split, writing ``gate_calibration.json``.
 ``train_full_pipeline`` runs the curriculum, restarting at the phase a
-loaded checkpoint records, and ends with ``final``.
+loaded checkpoint records, and ends with ``final``. Either model family
+(the PointNet encoder and MLP decoder, or the attention encoder and
+adaptive decoder of ``model.autoencoder.{encoder,decoder}_type``) runs
+through every phase. Each phase writes its scalars with the JAX trainer's
+tags and steps (AE/*, GAN/*, RL/*, Joint/*) to ``metrics.jsonl`` under
+``training.log_dir`` (``utils.metrics_logging``); ``close()`` closes the
+log.
 
 The best and periodic checkpoints are written in the JAX package's pickle
 layout; ``load_checkpoint`` reads either package's, pickle or orbax
@@ -61,6 +67,7 @@ from gan_rl_3d_tpu_torch.train import gate as gate_lib
 from gan_rl_3d_tpu_torch.train import replay_buffer as rb
 from gan_rl_3d_tpu_torch.train import steps
 from gan_rl_3d_tpu_torch.utils import checkpoint as ckpt_lib
+from gan_rl_3d_tpu_torch.utils.metrics_logging import MetricsLogger
 from gan_rl_3d_tpu_torch.utils.tree import tree_leaves, tree_map
 
 PHASES = net.PHASES
@@ -79,6 +86,11 @@ class RLGANNetTrainer:
         self.device = resolve_device(device)
         self.checkpoint_dir = Path(cfg.training.checkpoint_dir)
         self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
+        self.logger = MetricsLogger(
+            cfg.training.log_dir,
+            use_tensorboard=cfg.logging.use_tensorboard,
+            use_wandb=cfg.logging.use_wandb,
+            project_name=cfg.logging.project_name)
         self.preproc = cfg.preproc_spec()
         self.bidirectional = cfg.loss.bidirectional
         self.recon_loss = cfg.loss.reconstruction_loss
@@ -183,6 +195,8 @@ class RLGANNetTrainer:
             best_val = float(rst["best_val"])
             start_epoch = int(rst["epoch"]) + 1
         eval_freq = max(self.config.evaluation.eval_frequency, 1)
+        log_freq = max(self.config.logging.log_frequency, 1)
+        global_step = start_epoch * len(self.train_loader)
         data = self._resident_train_data()
         for epoch in range(start_epoch, num_epochs):
             t0 = time.time()
@@ -197,13 +211,20 @@ class RLGANNetTrainer:
                 recon_loss=self.recon_loss, bidirectional=self.bidirectional)
             losses = m["losses"].cpu().numpy()
             self.train_losses.extend(losses.tolist())
+            for i, loss in enumerate(losses):
+                if (global_step + i) % log_freq == 0:
+                    self.logger.log_scalar("AE/Batch_Loss", float(loss),
+                                           global_step + i)
+            global_step += len(losses)
             train_loss = float(losses.mean())
+            self.logger.log_scalar("AE/Train_Loss", train_loss, epoch)
             self.model["ae"] = {"params": params, "state": bn_state}
             self.epoch = epoch
             # validate per evaluation.eval_frequency, and on the last epoch
             val_loss = None
             if (epoch + 1) % eval_freq == 0 or epoch == num_epochs - 1:
                 val_loss = self._validate_ae(params, bn_state)
+                self.logger.log_scalar("AE/Val_Loss", val_loss, epoch)
             dt = time.time() - t0
             val_txt = f"val {val_loss:.6f}" if val_loss is not None else ""
             print(f"AE epoch {epoch + 1}/{num_epochs} "
@@ -363,6 +384,8 @@ class RLGANNetTrainer:
             g_loss = float(torch.stack(g_losses).mean())
             d_loss = float(torch.stack(d_losses).mean())
             self.lgan_losses.append((g_loss, d_loss))
+            self.logger.log_scalar("GAN/Generator_Loss", g_loss, epoch)
+            self.logger.log_scalar("GAN/Discriminator_Loss", d_loss, epoch)
             print(f"GAN epoch {epoch + 1}/{num_epochs} G {g_loss:.6f} "
                   f"D {d_loss:.6f} ({time.time() - t0:.1f}s)")
             self.model["lgan"] = {"params": params, "state": state}
@@ -445,6 +468,8 @@ class RLGANNetTrainer:
                                      **weights)
             r, cd = float(m["reward"]), float(m["chamfer"])
             self.rl_evals.append((episode, r, cd))
+            self.logger.log_scalar("RL/Eval_Reward", r, episode)
+            self.logger.log_scalar("RL/Eval_Chamfer", cd, episode)
             print(f"  eval reward (greedy, fixed batch) @ep {episode}: "
                   f"{r:.4f}  chamfer {cd:.4f}")
 
@@ -473,6 +498,11 @@ class RLGANNetTrainer:
                 log_eval(episode)
             if it % 10 == 0 or it == iters - 1:
                 avg = float(np.mean(rewards[-10:]))
+                for tag, value in (("Episode_Reward", rewards[-1]),
+                                   ("Average_Reward", avg),
+                                   ("Critic_Loss", m["critic_loss"]),
+                                   ("Actor_Loss", m["actor_loss"])):
+                    self.logger.log_scalar(f"RL/{tag}", float(value), episode)
                 print(f"RL iter {it + 1}/{iters} (episode {episode}) "
                       f"reward {rewards[-1]:.4f} avg {avg:.4f} critic "
                       f"{float(m['critic_loss']):.4f} actor "
@@ -551,6 +581,8 @@ class RLGANNetTrainer:
             train_loss = float(m["losses"].mean())
             val_loss = self._validate_joint()
             self.joint_losses.append((train_loss, val_loss))
+            self.logger.log_scalar("Joint/Train_Loss", train_loss, epoch)
+            self.logger.log_scalar("Joint/Val_Loss", val_loss, epoch)
             print(f"Joint epoch {epoch + 1}/{num_epochs} "
                   f"train {train_loss:.6f} val {val_loss:.6f} "
                   f"({time.time() - t0:.1f}s)")
@@ -635,6 +667,7 @@ class RLGANNetTrainer:
         self.refresh_d_losses = d_losses.tolist()
         print(f"D refresh done in {time.time() - t0:.1f}s: loss "
               f"{d_losses[0]:.4f} -> {d_losses[-1]:.4f}")
+        self.logger.log_scalar("GAN/Refresh_D_Loss", float(d_losses[-1]), 0)
         return float(d_losses[-1])
 
     def calibrate_gate(self) -> Dict[str, object]:
@@ -779,3 +812,7 @@ class RLGANNetTrainer:
         print(f"restored {phase} train state from {path} "
               f"(epoch {resume['epoch']})")
         return state
+
+    def close(self) -> None:
+        """Close the metrics log (trainer.py:832-833)."""
+        self.logger.close()

@@ -20,6 +20,7 @@ from gan_rl_3d_tpu.ops import metrics as jmetrics
 from gan_rl_3d_tpu.ops import pointcloud as jpc
 from gan_rl_3d_tpu.utils import checkpoint as jckpt
 from gan_rl_3d_tpu.utils import ply as jply
+from gan_rl_3d_tpu.utils import torch_convert as jtc
 from gan_rl_3d_tpu_torch import complete_clouds as tcc
 from gan_rl_3d_tpu_torch import config as tcfg
 from gan_rl_3d_tpu_torch import evaluate as tev
@@ -243,9 +244,10 @@ def _write_clouds(folder, specs):
 
 def test_evaluate_cli_on_cpu(run_dir, tmp_path):
     """The evaluation CLI on the JAX checkpoint: finite metrics, PLY
-    samples, the report, and an f32 engine the JAX package serves with the
-    port's outputs."""
-    root, _ = run_dir
+    samples, the report, an f32 engine the JAX package serves with the
+    port's outputs, and a reference .pth pair the JAX package's loader
+    reads back to the checkpoint's weights."""
+    root, tree = run_dir
     engine_path = tmp_path / "engine.pkl"
     stats = tev.main(["--config", str(root / "tiny.json"), "--checkpoint",
                       "jax_full", "--device", "cpu", "--ablate-z",
@@ -268,8 +270,18 @@ def test_evaluate_cli_on_cpu(run_dir, tmp_path):
                        "jax_full", "--device", "cpu", "--gate-mode", "union",
                        "--metrics", "chamfer_distance"])
     assert set(forced) == {"chamfer_distance"}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tev.main(["--export-pth", "x.pth", "--device", "cpu"])
+    # the reference .pth pair, read back by the JAX package's loader
+    pth = tmp_path / "model.pth"
+    tev.main(["--config", str(root / "tiny.json"), "--checkpoint",
+              "jax_full", "--device", "cpu", "--metrics", "chamfer_distance",
+              "--export-pth", str(pth)])
+    back = jtc.load_reference_checkpoint(str(pth))
+    for got, want in ((back["ae"], tree["ae"]), (back["lgan"], tree["lgan"]),
+                      (back["agent_networks"]["critic1_target"],
+                       tree["agent"]["critic1_target"])):
+        for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want),
+                        strict=True):
+            np.testing.assert_array_equal(np.asarray(a), b)
 
 
 def test_complete_clouds_serves_a_checkpoint_on_cpu(run_dir, tmp_path, capsys):
