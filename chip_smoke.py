@@ -7,7 +7,8 @@ Phases, each failing the run if it fails:
   1. device: require CUDA, print the card's name and power limit, build
      every kernel from csrc/ with nvcc (sm_90a), one process per source,
      and print each kernel's registers, stack and spills (no instance of
-     K1, K6, K3 or K2 may spill);
+     K1, K6, K3 or K2 may spill); build the host data loader
+     (runtime/cpp/loader.cpp) with g++ and print its seconds;
   2. kernels vs their plain PyTorch versions at the main paths' shapes
      (B=64, N=M=2048, masked and unmasked): every instance of K1 (f32; bf16
      on the tensor cores and on the CUDA cores, also at odd widths with a
@@ -37,7 +38,8 @@ Phases, each failing the run if it fails:
      2 steps at B=64 with the flagship recipe (bf16_selective), every
      loss finite, K3, K4 and K5 launched, the best checkpoint reloaded;
      then one f32 ``ae_train_step`` at B=8 on the card against the same
-     step on the CPU (same weights and draws): loss and every gradient;
+     step on the CPU (same weights and draws, K3's near-tie picks shared):
+     loss and every gradient;
      then mid-phase resume: ``train_rl_gan_net --phase autoencoder
      --resume autoencoder_epoch_1`` runs epoch index 1 alone from the
      ``_trainstate`` sibling, whose Adam moments load onto the card bit
@@ -57,8 +59,9 @@ Phases, each failing the run if it fails:
      actor changed, K3 launched in the reward, ``rl_agent_final``
      reloaded bit for bit into a fresh trainer and ``complete`` run on it;
      then one ``lgan_combined_step``, one ``agent_update`` and one
-     ``rl_step`` (64 updates) on the card against the same on CPU copies,
-     with the same draws;
+     ``rl_step`` (64 updates, from the agent after two more TD3 updates
+     on the CPU) on the card against the same on CPU copies, with the same
+     draws;
   6. phases 5 and 5.5 at full width from ``rl_agent_final``, through the
      trainer as ``--phase joint`` drives it: the recipe's joint block
      (bf16_selective, B=64, lr 1e-4, weight decay 1e-5, w_ae_recon 1)
@@ -83,7 +86,22 @@ Phases, each failing the run if it fails:
      ``complete_clouds --checkpoint`` and ``--engine``; ``joint_checks``
      on its weights; K1 (f32 and bf16), K6, K2, K3, K4, K5 must launch
      (the ``trained`` path);
-  8. times: each kernel (every instance of K1 and K6 at the flagship
+  8. the data path on best7's dataset regenerated at full size: ``python -m
+     gan_rl_3d_tpu_torch.setup_dataset --synthetic --samples-per-category
+     1600 --test`` (12,800 / 3,200 / 3,200 clouds; its seconds and bytes),
+     each split cached at config_lgan30's 2 workers (seconds), 64 clouds a
+     split equal to their files' rows as sets, bit for bit, the 8-group
+     shard-aligned plan inside its row groups; the committed
+     ``autoencoder_best`` (epoch 191) validated by the trainer on the val
+     split, within 1% of the JAX package's f32 figure 0.024710 (K3 must
+     launch: the ``data`` path), two other hole streams reading other
+     means, and with the Chamfer cross term's operands in bf16 within 1%
+     of the TPU's published 0.022436; ``generate_gfvs`` over the train
+     split matched order-free and one to one with the committed clean
+     GFVs (largest gap 3e-2, 99.9th percentile 2e-2, median 1e-2 of the
+     committed set's largest element); ``python -m
+     gan_rl_3d_tpu_torch.test_rl_gan_net`` on the card;
+  9. times: each kernel (every instance of K1 and K6 at the flagship
      widths), its plain version, the least time the card could take
      (bound) and a library yardstick (registers a thread and shared memory
      beside their times; K3 and K2 also as CUDA-graph device time, with
@@ -100,7 +118,7 @@ Phases, each failing the run if it fails:
      attention encoder and adaptive decoder) at B=64 in f32 and
      bf16_selective with its trace, per unfolded variant ``complete`` at
      B=64 and B=4096;
-  9. the variant family (runs/variant/config_variant.yaml's model block:
+  10. the variant family (runs/variant/config_variant.yaml's model block:
      the attention encoder, the adaptive decoder with its refinement) at
      the flagship widths, random weights from seed 0: the whole
      curriculum through ``train_rl_gan_net --phase full --profile`` at
@@ -166,6 +184,22 @@ TOL_INT8_CARD = 1e-4
 TRAINED_DIR = (Path(__file__).resolve().parent / "runs" / "best7"
                / "probe_lgan30" / "ckpt_lgan30")
 TRAINED_ARRAYS = 350
+# the data path: best7's dataset regenerated (setup_dataset --synthetic
+# --samples-per-category 1600, seed 0; runs/best7/RESULTS.md:8-12): 12,800
+# train, 3,200 val, 3,200 test clouds; clouds per split held to their files
+DATA_SAMPLES = 1600
+DATA_CHECKED = 64
+# autoencoder_best's val Chamfer on that split: the JAX package's own f32
+# figure on the CPU (its holes, PRNGKey(0) folded per batch), and the TPU's
+# published one (runs/ae_frontier/ae_cos200.log:199), whose K3 takes the
+# cross term -2a.b in one bf16 pass; each held within 1% (the card's holes
+# are its own: over 3,200 clouds other draws moved the mean by 0.03%)
+VAL_F32_JAX, VAL_BF16_TPU, TOL_VAL = 0.024710, 0.022436, 1e-2
+# the card's clean train GFVs against the committed ones (the TPU's bf16
+# products; gfv/gfvs_train.npz in best7's shuffle), matched order-free:
+# each pair's largest difference as a share of the committed set's largest
+# element (the port on a CPU read 2.195e-2 / 1.509e-2 / 4.57e-3)
+TOL_GFV_MAX, TOL_GFV_P999, TOL_GFV_MEDIAN = 3e-2, 2e-2, 1e-2
 TOL_DIST = 1e-3     # |a|^2+|b|^2-2ab cancellation in f32
 TIE_GAP = 1e-4      # squared-distance gap below which an index may differ
 # K4 vs plain, scaled by max(1, |ref|): K4 rounds as its plain version does
@@ -457,6 +491,7 @@ def phase_device():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
                  "script runs on a GPU only")
+    from gan_rl_3d_tpu_torch import runtime
     from gan_rl_3d_tpu_torch.device import resolve_device
     from gan_rl_3d_tpu_torch.ops import _cuda
 
@@ -467,6 +502,10 @@ def phase_device():
     t0 = time.perf_counter()
     _cuda.build()
     print(f"built {sorted(_cuda.SOURCES)} in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    runtime.build()
+    print(f"built the data loader ({runtime.SOURCE.name}, g++ "
+          f"{' '.join(runtime.CXX_FLAGS)}) in {time.perf_counter() - t0:.2f}s")
     for name in _cuda.SOURCES:
         for fn, info in ptxas_report(_cuda.build_log(name)).items():
             print(f"  {name} {fn}: {info}")
@@ -1504,14 +1543,280 @@ def phase_trained(device, tmp: Path, cfg, random_errs: dict):
     return counts
 
 
+def lgan30_config(data_dir: Path, ckpt_dir: Path):
+    """runs/best7/probe_lgan30/config_lgan30.yaml (the recipe that trained
+    the committed checkpoints) with ``data.data_dir`` and
+    ``training.checkpoint_dir`` set to the run's copies, and its logs and
+    results beside the checkpoints."""
+    from gan_rl_3d_tpu_torch.config import load_config
+
+    runs = {"checkpoint_dir": str(ckpt_dir),
+            "log_dir": str(ckpt_dir.parent / "logs_data"),
+            "results_dir": str(ckpt_dir.parent / "results_data")}
+    return load_config(str(TRAINED_DIR.parent / "config_lgan30.yaml"),
+                       overrides={"data": {"data_dir": str(data_dir)},
+                                  "training": runs})
+
+
+@contextlib.contextmanager
+def _patched(module, name, value):
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def nearest_bf16_cross(a, b, b_mask=None):
+    """The plain K3 with the operands of the cross term, -2a and b,
+    rounded to bf16 (a TPU's one-pass bf16 dot); |a|^2, |b|^2 and every
+    sum in f32. A check of where the TPU's figures come from, not a path
+    of the port."""
+    a, b = a.float(), b.float()
+    a2 = (a * a).sum(-1, keepdim=True)
+    b2 = (b * b).sum(-1)[:, None, :]
+    if b_mask is not None:
+        b2 = b2 + (1.0 - b_mask.float())[:, None, :] * 1e30
+    cross = torch.bmm((a * -2.0).bfloat16().float(),
+                      b.bfloat16().float().transpose(1, 2))
+    dmin, idx = ((a2 + b2) + cross).min(dim=-1)
+    return torch.sqrt(torch.clamp(dmin, min=1e-12)), idx.to(torch.int32)
+
+
+def split_checks(ds, split: str, seed: int) -> None:
+    """DATA_CHECKED clouds of a split: each its file's rows as a set, bit
+    for bit (sorted rows; the file parsed by numpy)."""
+    from gan_rl_3d_tpu_torch.data.dataset import load_txt_plain
+
+    def rows(x):
+        return x[np.lexsort(x.T[::-1])]
+
+    data = ds.as_array()
+    for i in np.random.RandomState(seed).choice(len(ds), DATA_CHECKED,
+                                                 replace=False):
+        ref = load_txt_plain(Path(ds.files[i]["path"]))
+        expect(ref.shape == data[i].shape
+               and np.array_equal(rows(data[i]), rows(ref)),
+               f"{split} cloud {i} is not its file's rows")
+
+
+def gfv_match(card: np.ndarray, committed: np.ndarray, device) -> dict:
+    """Each card GFV's nearest committed GFV (L2, order-free): whether the
+    map is one to one, the pairs' largest differences as shares of the
+    committed set's largest element, and the smallest ratio of second-
+    nearest to nearest distance."""
+    a = torch.from_numpy(card).to(device)
+    b = torch.from_numpy(committed).to(device)
+    scale = float(b.abs().max())
+    near, gaps, ratio = [], [], []
+    for chunk in a.split(1024):
+        d = torch.cdist(chunk, b,
+                        compute_mode="donot_use_mm_for_euclid_dist")
+        top, idx = d.topk(2, dim=1, largest=False)
+        near.append(idx[:, 0])
+        gaps.append((chunk - b[idx[:, 0]]).abs().amax(dim=1) / scale)
+        ratio.append(top[:, 1] / top[:, 0])
+    near, gaps = torch.cat(near), torch.cat(gaps).double()
+    return {"one_to_one": int(torch.unique(near).numel()) == len(card),
+            "max": float(gaps.max()),
+            "p999": float(torch.quantile(gaps, 0.999)),
+            "median": float(gaps.median()),
+            "min_ratio": float(torch.cat(ratio).min()), "scale": scale}
+
+
+def phase_data(device, tmp: Path):
+    """The data path (the port's C++ loader, the dataset, the batch plan,
+    the two data CLIs) on best7's dataset, regenerated at full size, with
+    the repo's trained AE: ``setup_dataset --synthetic
+    --samples-per-category 1600 --test``; each split cached at the
+    config's workers, sampled clouds their files' rows, the shard-aligned
+    plan; ``autoencoder_best``'s val Chamfer against the JAX package's f32
+    figure, and with the cross term in bf16 against the TPU's; its clean
+    train GFVs against the committed ones; ``test_rl_gan_net`` on the
+    card. Counted launch by launch (K3 in the validation)."""
+    import shutil
+
+    from gan_rl_3d_tpu_torch.data.dataset import (DATA_SHARD_GROUPS,
+                                                  BatchLoader,
+                                                  ShapeNetDataset)
+    from gan_rl_3d_tpu_torch.ops import _cuda
+    from gan_rl_3d_tpu_torch.ops import chamfer
+    from gan_rl_3d_tpu_torch.train import trainer as trainer_lib
+
+    card = card_line()
+    times = {}
+    data = tmp / "shapenet"
+    repo = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "gan_rl_3d_tpu_torch.setup_dataset",
+         "--data-dir", str(data), "--synthetic", "--samples-per-category",
+         str(DATA_SAMPLES), "--test"], cwd=repo, capture_output=True,
+        text=True)
+    times["setup_dataset s"] = time.perf_counter() - t0
+    print(out.stdout.strip())
+    expect(out.returncode == 0, f"setup_dataset failed:\n{out.stderr}")
+    expect("Data loading test passed" in out.stdout,
+           "setup_dataset --test did not pass")
+    files = {s: sorted((data / s).rglob("*.txt"))
+             for s in ("train", "val", "test")}
+    nbytes = sum(p.stat().st_size for v in files.values() for p in v)
+    sizes = {s: len(v) for s, v in files.items()}
+    per_cat = {"train": DATA_SAMPLES, "val": DATA_SAMPLES // 4,
+               "test": DATA_SAMPLES // 4}
+    print(f"setup_dataset --synthetic --samples-per-category {DATA_SAMPLES} "
+          f"--test: {times['setup_dataset s']:.1f}s, {nbytes} bytes, "
+          f"splits {sizes} ({card})")
+    expect(sizes == {s: 8 * n for s, n in per_cat.items()},
+           f"splits {sizes}")
+
+    ckpt = tmp / "ckpt_data"
+    shutil.copytree(TRAINED_DIR, ckpt)
+    cfg = lgan30_config(data, ckpt)
+    workers = cfg.training.num_workers
+    for i, split in enumerate(("train", "val", "test")):
+        t0 = time.perf_counter()
+        ds = ShapeNetDataset(str(data), split, N_MAIN,
+                             seed=cfg.training.seed, workers=workers)
+        dt = times[f"cache {split} s"] = time.perf_counter() - t0
+        print(f"{split}: {len(ds)} clouds cached in {dt:.2f}s at {workers} "
+              f"workers, {1e3 * dt / len(ds):.3f} ms a file ({card})")
+        split_checks(ds, split, seed=i)
+        if split == "train":
+            loader = BatchLoader(ds, cfg.training.batch_size,
+                                 seed=cfg.training.seed,
+                                 shard_groups=DATA_SHARD_GROUPS)
+            idx, _ = loader.epoch_indices()
+            n, bs = len(ds), cfg.training.batch_size
+            slot_group = np.arange(bs) // (bs // DATA_SHARD_GROUPS)
+            expect(bool((idx // (n // DATA_SHARD_GROUPS)
+                         == slot_group).all())
+                   and np.array_equal(np.sort(idx.ravel()), np.arange(n)),
+                   "the shard-aligned plan leaves a slot group's rows")
+        del ds
+    print(f"{DATA_CHECKED} clouds a split equal their files' rows; the "
+          f"{DATA_SHARD_GROUPS}-group plan keeps every slot group in its "
+          "row group")
+
+    trainer = trainer_lib.RLGANNetTrainer(cfg, device=device)
+    epoch, phase = trainer.load_checkpoint("autoencoder_best")
+    expect((epoch, phase) == (191, "autoencoder"),
+           f"autoencoder_best's meta {epoch}, {phase}")
+    ae_m = trainer.model["ae"]
+    torch.cuda.synchronize()
+    _cuda.launch_counts.clear()
+    t0 = time.perf_counter()
+    val = trainer._validate_ae(ae_m["params"], ae_m["state"])
+    torch.cuda.synchronize()
+    times["validate s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gfvs = trainer.generate_gfvs()
+    torch.cuda.synchronize()
+    times["generate_gfvs s"] = time.perf_counter() - t0
+    counts = dict(_cuda.launch_counts)
+    print(f"data-path launches: {counts}")
+    print(f"autoencoder_best val Chamfer on the card: {val:.6f} (JAX f32 "
+          f"{VAL_F32_JAX}, tol {TOL_VAL:.0%}; {len(trainer.val_loader)} "
+          f"batches in {times['validate s']:.2f}s, {card})")
+    expect(abs(val / VAL_F32_JAX - 1) <= TOL_VAL,
+           f"val Chamfer {val} is not within {TOL_VAL:.0%} of {VAL_F32_JAX}")
+    streams = {}
+    for stream in (trainer_lib.JOINT_VAL_HOLES, trainer_lib.GATE_HOLES):
+        with _patched(trainer_lib, "AE_VAL_HOLES", stream):
+            streams[stream] = trainer._validate_ae(ae_m["params"],
+                                                   ae_m["state"])
+    with _patched(chamfer, "_nearest_forward", nearest_bf16_cross):
+        bf16 = trainer._validate_ae(ae_m["params"], ae_m["state"])
+    print("val Chamfer under the other hole streams: " + ", ".join(
+        f"{k} {v:.6f}" for k, v in streams.items())
+        + f"; with the cross term in bf16 (plain): {bf16:.6f} (the TPU's "
+        f"{VAL_BF16_TPU}, tol {TOL_VAL:.0%})")
+    expect(len({val, *streams.values()}) == 3,
+           "two hole streams gave the same val Chamfer")
+    expect(abs(bf16 / VAL_BF16_TPU - 1) <= TOL_VAL,
+           f"bf16 cross term: {bf16} is not within {TOL_VAL:.0%} of "
+           f"{VAL_BF16_TPU}")
+
+    committed = np.load(TRAINED_DIR / "gfv" / "gfvs_train.npz")["clean"]
+    m = gfv_match(gfvs["clean"], committed, device)
+    print(f"clean GFVs of {len(gfvs['clean'])} train clouds "
+          f"({times['generate_gfvs s']:.2f}s) vs the committed "
+          f"{len(committed)}: one to one {m['one_to_one']}, gaps of "
+          f"{m['scale']:.4f} max {m['max']:.3e} (tol {TOL_GFV_MAX:g}), "
+          f"99.9th percentile {m['p999']:.3e} (tol {TOL_GFV_P999:g}), "
+          f"median {m['median']:.3e} (tol {TOL_GFV_MEDIAN:g}); smallest "
+          f"second/nearest distance ratio {m['min_ratio']:.3f}")
+    expect(len(gfvs["clean"]) == len(committed) and m["one_to_one"],
+           "the clean GFVs do not match the committed ones one to one")
+    expect(m["max"] <= TOL_GFV_MAX and m["p999"] <= TOL_GFV_P999
+           and m["median"] <= TOL_GFV_MEDIAN,
+           "the clean GFVs are too far from the committed ones")
+    del trainer, gfvs
+    shutil.rmtree(data)
+
+    t0 = time.perf_counter()
+    demo = subprocess.run(
+        [sys.executable, "-m", "gan_rl_3d_tpu_torch.test_rl_gan_net"],
+        cwd=repo, capture_output=True, text=True)
+    times["test_rl_gan_net s"] = time.perf_counter() - t0
+    print(demo.stdout.strip())
+    expect(demo.returncode == 0
+           and "All integration checks passed" in demo.stdout,
+           f"test_rl_gan_net failed on the card:\n{demo.stderr}")
+    print(f"data path times ({card}): " + json.dumps(
+        {k: round(v, 3) for k, v in times.items()}))
+    for name in DATA_KERNELS:
+        expect(counts.get(name, 0) > 0, f"{name} never launched on the "
+               "data path")
+    return counts
+
+
 def _leaves(tree):
     from gan_rl_3d_tpu_torch.utils.tree import tree_leaves
     return tree_leaves(tree)
 
 
+def tie_sharing():
+    """(card, cpu, gaps) for one card-vs-CPU check: under the context
+    manager ``card`` every K3 call's picks are recorded; under ``cpu`` the
+    plain version takes the card's pick, call by call, where it differs
+    from its own within TIE_GAP of the nearest squared distance (the rule
+    of the K3 checks), and ``gaps`` collects those gaps. Both resolve a
+    near-tie rightly, and a flipped pick moves a step's gradients by more
+    than its arithmetic does: on the weights phase 1 trains here one tie
+    (gap 5.96e-7) moved the AE step's gradients 5.8e-3 of the largest
+    element on an H100, 3.8e-4 with the pick shared."""
+    from gan_rl_3d_tpu_torch.ops import chamfer
+
+    kernel, picks, gaps = chamfer._nearest_forward, [], []
+
+    def recorded(a, b, b_mask):
+        dist, idx = kernel(a, b, b_mask)
+        picks.append(idx.cpu().long())
+        return dist, idx
+
+    def shared(a, b, b_mask):
+        expect(len(gaps) < len(picks), "the CPU ran more nearest-neighbour "
+               "searches than the card")
+        d2 = chamfer._sqdist(a.float(), b.float(), b_mask)
+        dmin, own = d2.min(dim=-1)
+        card = picks[len(gaps)].to(a.device)
+        gap = d2.gather(-1, card[..., None])[..., 0] - dmin
+        take = (card != own) & (gap <= TIE_GAP)
+        gaps.append(gap[take].tolist())
+        idx = torch.where(take, card, own)
+        dmin = d2.gather(-1, idx[..., None])[..., 0]
+        return torch.sqrt(torch.clamp(dmin, min=1e-12)), idx.to(torch.int32)
+
+    return (_patched(chamfer, "_nearest_forward", recorded),
+            _patched(chamfer, "_nearest_forward", shared), gaps)
+
+
 def step_check(device, ae_model):
     """One f32 ae_train_step at B=8 on the card and on the CPU, from the
-    same weights, batch and draws: the loss and every gradient."""
+    same weights, batch and draws, near-tie picks shared
+    (``tie_sharing``): the loss and every gradient."""
     from gan_rl_3d_tpu_torch.config import AETrainConfig
     from gan_rl_3d_tpu_torch.ops import pointcloud as pc_ops
     from gan_rl_3d_tpu_torch.train import steps
@@ -1520,18 +1825,20 @@ def step_check(device, ae_model):
     pc, _ = make_clouds(B_STEP_CHECK, N_MAIN, seed=20, device=device)
     draws = pc_ops.draw_training_batch(torch.Generator().manual_seed(21),
                                        B_STEP_CHECK, N_MAIN)
+    on_card, on_cpu, gaps = tie_sharing()
     results = []
-    for dev in (device, torch.device("cpu")):
+    for dev, ties in ((device, on_card), (torch.device("cpu"), on_cpu)):
         params = tree_map(lambda v: v.detach().to(dev).clone()
                           .requires_grad_(True), ae_model["params"])
         state = tree_map(lambda v: v.detach().to(dev), ae_model["state"])
         opt, _ = steps.make_ae_optimizer(params, AETrainConfig(), 1)
-        _, m = steps.ae_train_step(
-            params, state, opt,
-            {"complete_pc": pc.to(dev),
-             "pad": torch.zeros(B_STEP_CHECK, device=dev)},
-            {k: v.to(dev) for k, v in draws.items()},
-            bn_stats="single_read_grouped")
+        with ties:
+            _, m = steps.ae_train_step(
+                params, state, opt,
+                {"complete_pc": pc.to(dev),
+                 "pad": torch.zeros(B_STEP_CHECK, device=dev)},
+                {k: v.to(dev) for k, v in draws.items()},
+                bn_stats="single_read_grouped")
         results.append((float(m["loss"]),
                         [p.grad.cpu() for p in _leaves(params)]))
     (loss, grads), (ref_loss, ref_grads) = results
@@ -1541,9 +1848,16 @@ def step_check(device, ae_model):
     le = abs(loss - ref_loss) / abs(ref_loss)
     print(f"ae_train_step f32 B={B_STEP_CHECK}: loss card {loss:.7f} cpu "
           f"{ref_loss:.7f} (rel {le:.3e}, tol {TOL_STEP_LOSS:g}); gradients "
-          f"{e:.3e} of max |grad| {scale:.3e} (tol {TOL_STEP_GRAD:g})")
+          f"{e:.3e} of max |grad| {scale:.3e} (tol {TOL_STEP_GRAD:g}); "
+          f"{_ties_text(gaps)}")
     expect(le <= TOL_STEP_LOSS and e <= TOL_STEP_GRAD,
            "the f32 step on the card disagrees with the CPU")
+
+
+def _ties_text(gaps: list) -> str:
+    flat = [g for call in gaps for g in call]
+    return (f"{len(flat)} near-tie picks of {len(gaps)} K3 calls shared "
+            f"(squared-distance gaps {flat[:8]})")
 
 
 def _rl_config(cfg):
@@ -1710,6 +2024,7 @@ def rl_checks(device, trainer):
     envs = rc.envs_per_step
     pc, _ = make_clouds(envs, N_MAIN, seed=44, device=cpu)
     pre = random_transitions(RL_PREFILL, td3, 45, cpu)
+    start = agent_warm(trainer.model["agent"], td3, seed=47)
     rl_draws = steps.draw_rl_step(
         torch.Generator().manual_seed(46), envs, N_MAIN, cfg=td3,
         buffer_size=RL_PREFILL + envs, updates_per_step=rc.updates_per_step,
@@ -1717,7 +2032,7 @@ def rl_checks(device, trainer):
     res = {}
     for dev in (device, cpu):
         model = {**{k: _on(trainer.model[k], dev) for k in ("ae", "lgan")},
-                 "agent": _agent_copy(trainer.model["agent"], dev, td3)}
+                 "agent": _agent_copy(start, dev, td3)}
         buf = rb.ReplayBuffer(cfg.model.rl_agent.buffer_size,
                               td3.state_dim, td3.action_dim, dev)
         buf.add_batch(rl.TransitionBatch(*(v.to(dev) for v in pre)))
@@ -1746,8 +2061,31 @@ def rl_checks(device, trainer):
           f"and OU state {oe:.3e} scaled (tol {TOL_RL_PARAM:g})")
     expect(le <= TOL_RL_LOSS and be <= TOL_RL_PARAM and oe <= TOL_RL_PARAM,
            "rl_step: the card disagrees with the CPU")
-    _check_agents("rl_step", model["agent"], r_model["agent"],
-                  trainer.model["agent"], rc.updates_per_step, td3.critic_lr)
+    _check_agents("rl_step", model["agent"], r_model["agent"], start,
+                  rc.updates_per_step, td3.critic_lr)
+
+
+def agent_warm(agent, td3, seed):
+    """The agent on the CPU after ``policy_delay`` TD3 updates on random
+    transitions, one of them the actor's, so every element of every
+    network's Adam holds moments (``lgan_warm`` says why): the trained
+    agent's elements that no training state fed (an input channel the
+    encoder left at 0 on the training clouds) are fresh, and a fresh
+    element's first step is lr times the sign of its gradient, which flips
+    between two devices where a ReLU kink moves the gradient through 0
+    (on an H100: one element of the actor's first layer moved the
+    rl_step's actor update 2.4e-2 of the CPU's)."""
+    from gan_rl_3d_tpu_torch.models import rl_agent as rl
+
+    cpu = torch.device("cpu")
+    warm = _agent_copy(agent, cpu, td3)
+    for i in range(td3.policy_delay):
+        rl.agent_update(
+            warm, random_transitions(td3.batch_size, td3, seed + i, cpu),
+            torch.randn((td3.batch_size, td3.action_dim),
+                        generator=torch.Generator().manual_seed(seed + i)),
+            td3)
+    return warm
 
 
 def lgan_draws(cfg, seed):
@@ -2492,7 +2830,8 @@ def variant_ae_step_on(dev, warm, trainer, batch, draws, lr_scale=1.0):
 def variant_checks(device, trainer):
     """One f32 variant ``ae_train_step`` at B=8, full width, on the card and
     on CPU copies from the same weights, draws and Adam moments one step
-    old: the loss within TOL_RL_LOSS, each network's update within
+    old, near-tie picks shared (``tie_sharing``): the loss within
+    TOL_RL_LOSS, each network's update within
     TOL_RL_UPDATE of the CPU's in the 2-norm, its state within
     TOL_RL_PARAM; lr 0 and twice the lr on the card must fail. Then
     ``joint_checks`` on the variant's ``final``."""
@@ -2502,16 +2841,18 @@ def variant_checks(device, trainer):
     start = {k: {p: warm[0][p][k] for p in ("params", "state")}
              for k in ("encoder", "decoder")}
     batch, draws = joint_batch(trainer, seed=91)
-    (sm, card), (ref_m, ref) = (variant_ae_step_on(dev, warm, trainer, batch,
-                                                   draws)
-                                for dev in (device, cpu))
+    on_card, on_cpu, gaps = tie_sharing()
+    with on_card:
+        sm, card = variant_ae_step_on(device, warm, trainer, batch, draws)
+    with on_cpu:
+        ref_m, ref = variant_ae_step_on(cpu, warm, trainer, batch, draws)
     le = _rel(sm["loss"], ref_m["loss"])
     errs = {k: network_errs(card[k], ref[k], start[k]) for k in card}
     tol_noise = 2 * lr
     print(f"variant ae_train_step f32 B={B_STEP_CHECK}: card vs CPU, loss "
           f"{float(sm['loss']):.6f} / {float(ref_m['loss']):.6f} ({le:.3e}, "
           f"tol {TOL_RL_LOSS:g}); {_errs_text(errs)} ({_TOL_TEXT}, "
-          f"Adam-noise leaves {tol_noise:g} absolute)")
+          f"Adam-noise leaves {tol_noise:g} absolute); {_ties_text(gaps)}")
     shifted = dict(batch, complete_pc=batch["complete_pc"] * (1.0 + 1e-7))
     _, floor = variant_ae_step_on(cpu, warm, trainer, shifted, draws)
     print("variant ae_train_step CPU against itself with the input clouds "
@@ -2626,6 +2967,8 @@ JOINT_KERNELS = ("nn_dist", "nn_gather", "nn_scatter", "encoder_pool_f32",
 VARIANT_KERNELS = ("nn_dist", "nn_gather", "nn_scatter", "nn_min")
 # the trained checkpoint: the three engines (K1 f32, K1 bf16 on the tensor
 # cores, K6), evaluate's metrics (K2, K3) and the joint step (K3-K5)
+# the data path: the AE validation's Chamfer (K3 twice a batch)
+DATA_KERNELS = ("nn_dist",)
 TRAINED_KERNELS = ("encoder_pool_f32", "encoder_pool_bf16",
                    "encoder_pool_int8", "nn_dist", "nn_min", "nn_gather",
                    "nn_scatter")
@@ -3197,6 +3540,7 @@ def main() -> None:
         joint_path, jtrainer = phase_joint(device, trainer.config, tmp)
         joint_checks(device, jtrainer)
         trained_path = phase_trained(device, tmp, cfg, random_errs)
+        data_path = phase_data(device, tmp)
         # every time is taken before the first trace of the process
         rows = phase_times(device, engine, engine_bf16, engine_q)
         rl_cases = phase_rl_times(device, trainer)
@@ -3220,6 +3564,7 @@ def main() -> None:
                    "rl": rl_path.get(name, 0),
                    "joint": joint_path.get(name, 0),
                    "trained": trained_path.get(name, 0),
+                   "data": data_path.get(name, 0),
                    "variant": variant_path.get(name, 0)}
         expect(name in WIDE_INSTANCES or sum(by_path.values()) > 0,
                f"{name} never launched on a main path")

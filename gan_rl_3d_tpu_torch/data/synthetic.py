@@ -85,4 +85,8 @@ def create_synthetic_dataset(
             cat_dir.mkdir(parents=True, exist_ok=True)
             for i in range(n):
                 pc = generate_synthetic_cloud(category, num_points, rng)
-                np.savetxt(cat_dir / f"{category}_{i:04d}.txt", pc, fmt="%.6f")
+                # the bytes np.savetxt(fmt="%.6f") writes, one format call
+                # a file instead of one a row
+                rows = "%.6f %.6f %.6f\n" * len(pc)
+                (cat_dir / f"{category}_{i:04d}.txt").write_text(
+                    rows % tuple(pc.ravel().tolist()))

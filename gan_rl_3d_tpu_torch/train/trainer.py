@@ -57,7 +57,8 @@ from gan_rl_3d_tpu_torch.convert import (adam_to_optax, agent_from_numpy,
                                          load_chain, model_from_numpy,
                                          model_to_numpy, optax_layout,
                                          tree_from_numpy)
-from gan_rl_3d_tpu_torch.data.dataset import (BatchLoader, ShapeNetDataset,
+from gan_rl_3d_tpu_torch.data.dataset import (DATA_SHARD_GROUPS,
+                                              BatchLoader, ShapeNetDataset,
                                               setup_dataset)
 from gan_rl_3d_tpu_torch.device import resolve_device
 from gan_rl_3d_tpu_torch.models import rl_agent as rl
@@ -72,9 +73,17 @@ from gan_rl_3d_tpu_torch.utils.tree import tree_leaves, tree_map
 
 PHASES = net.PHASES
 EVAL_HOLES_SEED = 777  # the greedy eval's fixed holes (trainer.py:460)
-# streams of fixed per-batch holes, as the JAX trainer's validation keys:
-# batch i of stream s draws from a generator seeded (s << 32) + i
+# streams of fixed per-batch holes, as the JAX trainer's validation keys
+# PRNGKey(0), (1), (2) folded with the batch index (trainer.py:271,573,674)
 AE_VAL_HOLES, JOINT_VAL_HOLES, GATE_HOLES = 0, 1, 2
+HOLE_STREAMS = 3
+
+
+def fixed_holes_seed(stream: int, i: int) -> int:
+    """The seed of batch i's holes in a stream: distinct for every
+    (stream, batch) pair within the low 32 bits, the only bits the CPU
+    generator keeps."""
+    return HOLE_STREAMS * i + stream
 
 
 class RLGANNetTrainer:
@@ -149,15 +158,21 @@ class RLGANNetTrainer:
         if not (data_dir / "train").exists():
             fractions = (cfg.data.train_split, cfg.data.val_split,
                          cfg.data.test_split)
+        # the shard-aligned plan of a row-sharded split
+        # (trainer.py:117-131); one device keeps the whole split resident
+        groups = (DATA_SHARD_GROUPS
+                  if cfg.training.data_residency == "sharded" else 1)
 
         def make_loader(split, shuffle):
             return BatchLoader(
                 ShapeNetDataset(str(data_dir), split,
                                 cfg.model.autoencoder.num_points,
                                 seed=cfg.training.seed,
-                                split_fractions=fractions),
+                                split_fractions=fractions,
+                                workers=cfg.training.num_workers),
                 cfg.training.batch_size, shuffle=shuffle,
-                seed=cfg.training.seed)
+                seed=cfg.training.seed,
+                shard_groups=groups if shuffle else 1)
 
         self.train_loader = make_loader("train", True)
         # best-checkpoint selection uses the val split when it has data
@@ -261,7 +276,8 @@ class RLGANNetTrainer:
         """Batch i's holes in a stream of fixed per-batch draws (no
         augmentation), the same in every epoch."""
         return pc_ops.draw_training_batch(
-            torch.Generator(self.device).manual_seed((stream << 32) + i),
+            torch.Generator(self.device).manual_seed(
+                fixed_holes_seed(stream, i)),
             bsz, n, spec=self.preproc, augment=False)
 
     def _validate_ae(self, params, bn_state) -> float:

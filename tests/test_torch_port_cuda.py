@@ -711,14 +711,15 @@ def _joint_trainer(device, seed=11):
     import types
 
     from gan_rl_3d_tpu_torch.ops import pointcloud as pc_ops
+    from gan_rl_3d_tpu_torch.train.trainer import fixed_holes_seed
 
     cfg, td3, model, _ = _rl_model(device, seed=seed)
     return types.SimpleNamespace(
         config=cfg, model=model, td3=td3, preproc=cfg.preproc_spec(),
         bidirectional=cfg.loss.bidirectional, bn_stats=cfg.training.bn_stats,
         _fixed_holes=lambda stream, i, bsz, n: pc_ops.draw_training_batch(
-            torch.Generator(device).manual_seed((stream << 32) + i), bsz, n,
-            spec=cfg.preproc_spec(), augment=False))
+            torch.Generator(device).manual_seed(fixed_holes_seed(stream, i)),
+            bsz, n, spec=cfg.preproc_spec(), augment=False))
 
 
 @pytest.mark.cuda
