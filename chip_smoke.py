@@ -134,7 +134,29 @@ Phases, each failing the run if it fails:
      against CPU from Adam moments one step old, lr 0 failing; then the
      reference .pth bridge on the joint path's ``final``: ``evaluate
      --export-pth``, ``load_reference_checkpoint``, ``complete`` bit for
-     bit on the card.
+     bit on the card;
+  11. the multi path, the ("data", "model") mesh over torch.distributed
+     (run after phase 8): (a) ``python -m torch.distributed.run
+     --nproc-per-node 1`` runs this script's ``--torchrun-child`` mode,
+     which drives the training CLI over the whole curriculum cut as the
+     variant path is, on NCCL at world size 1; its ``final`` equals a
+     plain one-process run's bit for bit; one ``ae_train_step`` and one
+     ``joint_train_step`` at B=64 timed on both routes, with the
+     collectives a step and the device time from a torch.profiler trace;
+     (b) 2 and 4 ranks sharing the one card over gloo (the port stages
+     CUDA tensors through host memory for gloo): from the same weights and
+     draws, 3 ``ae_train_step``s in both BN modes (each from the
+     one-process state before it), one ``lgan_combined_step``, one
+     ``rl_step`` of 64 environments, one ``joint_train_step`` (and at 4
+     ranks the same on a 2x2 mesh, the decoder head column-sharded) and
+     DP serving of the f32 engine, held against the one-process run on the
+     card (losses 1e-4 relative; each network's update 1e-2 of the one
+     process's in the 2-norm, the joint step's 5e-2 as in phase 6; Adam's
+     noise leaves 2 lr an update; lr 0 must fail; serving 1e-5); K1, K3, K4
+     and K5 must launch on the path (every rank's and (a)'s launches);
+     step times per rank count, not a scaling figure; (c) the same over
+     NCCL when two or more cards are visible, else one line saying why
+     not.
 
 The next-to-last line is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}. Any failure raises and exits
@@ -2119,10 +2141,12 @@ def lgan_warm(lgan, cfg, real, seed):
             d_opt.state_dict())
 
 
-def lgan_step_on(dev, warm, cfg, real, draws, lr_scale=1.0):
+def lgan_step_on(dev, warm, cfg, real, draws, lr_scale=1.0, mesh=None):
     """One ``lgan_combined_step`` on ``dev`` from ``lgan_warm``'s
     weights, state and Adam states, with lr times ``lr_scale``: (metrics,
-    {"generator", "discriminator"} each {"params", "state"})."""
+    {"generator", "discriminator"} each {"params", "state"}). Under
+    ``mesh`` ``real`` is this rank's rows and ``draws`` the global
+    batch's."""
     import copy
 
     from gan_rl_3d_tpu_torch.train import steps
@@ -2140,7 +2164,7 @@ def lgan_step_on(dev, warm, cfg, real, draws, lr_scale=1.0):
             group["lr"] = lr * lr_scale
     state, sm = steps.lgan_combined_step(
         params, state, opts["discriminator"], opts["generator"], real.to(dev),
-        _on(draws, dev), lambda_gp=lc.lambda_gp)
+        _on(draws, dev), lambda_gp=lc.lambda_gp, mesh=mesh)
     return sm, {k: {"params": params[k], "state": state[k]}
                 for k in ("generator", "discriminator")}
 
@@ -2930,6 +2954,667 @@ def phase_variant_times(device, card: str):
     return cases, ms
 
 
+# ---------------------------------------------------------------------------
+# the multi path: the ("data", "model") mesh over torch.distributed
+# ---------------------------------------------------------------------------
+
+MULTI_WORLDS = (2, 4)   # gloo ranks sharing the one card
+MULTI_AE_STEPS = 3
+TOL_MULTI_LOSS = 1e-4   # relative, of the one process's loss
+TOL_MULTI_SERVE = 1e-5  # the f32 engine's outputs, DP against one process
+MULTI_KERNELS = ("encoder_pool_f32", "nn_dist", "nn_gather", "nn_scatter")
+MULTI_TIMED = 5         # steps a rank times
+
+
+def _multi_config(cfg, tmp: Path, name: str):
+    """The recipe (the flagship family) cut as the variant path is: 1 AE
+    epoch (2 steps at B=64), 1 LGAN epoch, VARIANT_RL_ITERS RL iterations,
+    the joint block as JOINT_EPOCHS / JOINT_REFRESH; its checkpoints and
+    logs under ``tmp/name``."""
+    import dataclasses
+
+    t = cfg.training
+    return dataclasses.replace(cfg, training=dataclasses.replace(
+        t, checkpoint_dir=str(tmp / name / "ckpt"),
+        log_dir=str(tmp / name / "logs"),
+        results_dir=str(tmp / name / "results"),
+        autoencoder=dataclasses.replace(t.autoencoder, epochs=1),
+        lgan=dataclasses.replace(t.lgan, epochs=1),
+        rl_agent=dataclasses.replace(
+            t.rl_agent, episodes=VARIANT_RL_ITERS * t.rl_agent.envs_per_step),
+        joint=dataclasses.replace(t.joint, epochs=JOINT_EPOCHS,
+                                  refresh_d_steps=JOINT_REFRESH)))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _write_config(cfg, path: Path) -> Path:
+    import dataclasses
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(dataclasses.asdict(cfg)))
+    return path
+
+
+def _step_times(device, cfg, mesh) -> dict:
+    """ms per ``ae_train_step`` and per ``joint_train_step`` (f32, B=64
+    global, this rank's rows) under ``mesh`` (None: one process), the
+    collectives each issues, and the device busy time of one step from a
+    torch.profiler trace (NCCL's kernels among them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gan_rl_3d_tpu_torch.models import rl_gan_net as net
+    from gan_rl_3d_tpu_torch.ops import pointcloud as pc_ops
+    from gan_rl_3d_tpu_torch.parallel import collectives
+    from gan_rl_3d_tpu_torch.parallel import mesh as mesh_lib
+    from gan_rl_3d_tpu_torch.train import steps
+
+    model = net.init_model(torch.Generator().manual_seed(0), cfg, device)
+    tr = _trainer_view(cfg)
+    model = {**model, **{k: {"params": _on(model[k]["params"], device, True),
+                             "state": model[k]["state"]}
+                         for k in ("ae", "lgan")}}
+    model = mesh_lib.shard_model_for_mesh(mesh, model)
+    ae_m = model["ae"]
+    ae_opt, sched = steps.make_ae_optimizer(ae_m["params"],
+                                            cfg.training.autoencoder, 10)
+    j_opt = steps.make_joint_optimizer(steps.joint_trainable(model),
+                                       cfg.training.joint)
+    pc, _ = make_clouds(B_MAIN, N_MAIN, seed=81, device=device)
+    batch = mesh_lib.shard_batch(mesh, {"complete_pc": pc,
+                                        "pad": torch.zeros(B_MAIN,
+                                                           device=device)})
+    gen = torch.Generator(device).manual_seed(82)
+    holder = {"ae": ae_m["state"], "model": model}
+
+    def ae_step():
+        draws = pc_ops.draw_training_batch(gen, B_MAIN, N_MAIN,
+                                           spec=tr.preproc)
+        holder["ae"], _ = steps.ae_train_step(
+            ae_m["params"], holder["ae"], ae_opt, batch, draws,
+            scheduler=sched, spec=tr.preproc, bn_stats=tr.bn_stats,
+            mesh=mesh)
+
+    def joint_step():
+        draws = pc_ops.draw_training_batch(gen, B_MAIN, N_MAIN,
+                                           spec=tr.preproc)
+        holder["model"], _ = steps.joint_train_step(
+            holder["model"], j_opt, batch, draws, mesh=mesh,
+            **_joint_kw(tr))
+
+    out = {}
+    for name, fn in (("ae_train_step", ae_step),
+                     ("joint_train_step", joint_step)):
+        fn()
+        before = sum(collectives.calls.values())
+        fn()
+        calls = sum(collectives.calls.values()) - before
+        ms = timed_ms(fn, reps=MULTI_TIMED, repeats=3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = device_kernel_times(prof)
+        busy = sum(us for _, _, us in events) / 1e3
+        nccl = sum(us for k, _, us in events if "nccl" in k.lower()) / 1e3
+        out[name] = {"ms": ms, "collectives": calls,
+                     "device_busy_ms": busy, "nccl_device_ms": nccl}
+    torch.cuda.synchronize()
+    return out
+
+
+def _trainer_view(cfg):
+    """What ``_joint_kw`` reads of a trainer, from a config."""
+    import types
+
+    return types.SimpleNamespace(
+        config=cfg, td3=cfg.td3_config(), preproc=cfg.preproc_spec(),
+        bidirectional=cfg.loss.bidirectional,
+        bn_stats=cfg.training.bn_stats)
+
+
+def torchrun_child(cfg_path: str, out_path: str) -> None:
+    """Run under ``torch.distributed.run --nproc-per-node 1`` by
+    ``phase_multi``: joins the NCCL group torchrun describes, times the
+    steps of both routes on the same card, then drives the whole
+    curriculum through the training CLI's ``main`` in that group, counting
+    its launches."""
+    import torch.distributed as dist
+
+    from gan_rl_3d_tpu_torch import train_rl_gan_net
+    from gan_rl_3d_tpu_torch.config import load_config
+    from gan_rl_3d_tpu_torch.ops import _cuda
+    from gan_rl_3d_tpu_torch.parallel import mesh as mesh_lib
+
+    device = mesh_lib.init_distributed("nccl", "cuda")
+    cfg = load_config(cfg_path)
+    mesh = mesh_lib.make_mesh(device=device)
+    times = {"torchrun": _step_times(device, cfg, mesh),
+             "plain": _step_times(device, cfg, None)}
+    _cuda.launch_counts.clear()
+    t0 = time.perf_counter()
+    train_rl_gan_net.main(["--config", cfg_path, "--phase", "full"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(_cuda.launch_counts)
+    world, backend = dist.get_world_size(), dist.get_backend()
+    dist.destroy_process_group()
+    Path(out_path).write_text(json.dumps({
+        "counts": counts, "seconds": seconds, "times": times,
+        "world": world, "backend": backend}))
+
+
+def _final_leaves(ckpt: Path) -> list:
+    from gan_rl_3d_tpu_torch.utils import checkpoint as ckpt_lib
+    from gan_rl_3d_tpu_torch.utils.tree import tree_leaves
+
+    model, _ = ckpt_lib.load_model_checkpoint(str(ckpt), "final")
+    return [np.asarray(x) for x in tree_leaves(model)]
+
+
+def phase_multi_torchrun(device, cfg, tmp: Path) -> dict:
+    """(a) NCCL at world size 1 through the distributed code: ``python -m
+    torch.distributed.run --nproc-per-node 1`` drives the training CLI
+    over the whole curriculum (``torchrun_child``); its ``final`` against
+    a plain one-process run's from the same seed, bit for bit; the
+    ae_train_step and joint_train_step times of both routes, with the
+    collectives a step and the device time. Returns the child's launch
+    counts."""
+    from gan_rl_3d_tpu_torch import train_rl_gan_net
+
+    run_cfg = _multi_config(cfg, tmp, "multi_torchrun")
+    plain_cfg = _multi_config(cfg, tmp, "multi_plain")
+    run_path = _write_config(run_cfg, tmp / "multi_torchrun.json")
+    out = tmp / "multi_torchrun_out.json"
+    cmd = [sys.executable, "-m", "torch.distributed.run",
+           "--nproc-per-node", "1", "--master-addr", "localhost",
+           "--master-port", str(_free_port()),
+           str(Path(__file__).resolve()), "--torchrun-child", str(run_path),
+           str(out)]
+    t0 = time.perf_counter()
+    subprocess.run(cmd, check=True, timeout=900,
+                   cwd=str(Path(__file__).resolve().parent))
+    print(f"multi (a): torch.distributed.run --nproc-per-node 1 "
+          f"train_rl_gan_net --phase full (NCCL, world 1) in "
+          f"{time.perf_counter() - t0:.2f}s")
+    child = json.loads(out.read_text())
+    expect(child["world"] == 1 and child["backend"] == "nccl",
+           f"torchrun child's group: {child['world']} {child['backend']}")
+    t0 = time.perf_counter()
+    train_rl_gan_net.main(["--config", str(_write_config(
+        plain_cfg, tmp / "multi_plain.json")), "--phase", "full"])
+    torch.cuda.synchronize()
+    print(f"multi (a): the same curriculum in one plain process in "
+          f"{time.perf_counter() - t0:.2f}s")
+    a = _final_leaves(Path(run_cfg.training.checkpoint_dir))
+    b = _final_leaves(Path(plain_cfg.training.checkpoint_dir))
+    differ = [i for i, (x, y) in enumerate(zip(a, b))
+              if x.shape != y.shape or not np.array_equal(x, y)]
+    print(f"multi (a): final of {len(a)} leaves, torchrun vs plain: "
+          f"{len(differ)} differ")
+    expect(len(a) == len(b) and not differ,
+           f"torchrun's final differs from the plain run's in leaves "
+           f"{differ[:10]}")
+    for route, rows in child["times"].items():
+        for step, r in rows.items():
+            print(f"multi (a) {route} {step} f32 B={B_MAIN} ({card_line()}):"
+                  f" {r['ms']:.3f} ms, {r['collectives']} collectives a "
+                  f"step, device busy {r['device_busy_ms']:.3f} ms, NCCL "
+                  f"device {r['nccl_device_ms']:.3f} ms")
+    print(f"multi (a) launches: {child['counts']}")
+    return child["counts"]
+
+
+# the ranks of (b) and (c) -------------------------------------------------
+
+
+def _multi_rank(rank: int, world: int, backend: str, store: str,
+                inputs_path: str, out_dir: str, shapes: list) -> None:
+    """One rank of ``phase_multi``'s gloo (or NCCL) runs: every job of
+    ``multi_jobs`` on each mesh shape, its results, launch counts,
+    collectives and (on a data-only mesh) step times to
+    ``out_dir/<shape>.<rank>.pt``. gloo ranks share card 0; NCCL rank r
+    runs on card r."""
+    import torch.distributed as dist
+
+    from gan_rl_3d_tpu_torch.ops import _cuda
+    from gan_rl_3d_tpu_torch.parallel import collectives
+    from gan_rl_3d_tpu_torch.parallel import mesh as mesh_lib
+
+    device = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        inputs = torch.load(inputs_path, weights_only=False)
+        for shape in shapes:
+            mesh = mesh_lib.make_mesh(*shape, device=device)
+            tp = shape[1] > 1
+            _cuda.launch_counts.clear()
+            collectives.calls.clear()
+            res = multi_jobs(inputs, mesh, device, tp=tp)
+            res["launches"] = dict(_cuda.launch_counts)
+            res["collectives"] = dict(collectives.calls)
+            res["times"] = (None if tp else
+                            _step_times(device, inputs["cfg"], mesh))
+            torch.save(res, Path(out_dir) / f"{shape[0]}x{shape[1]}.{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _cpu(tree):
+    from gan_rl_3d_tpu_torch.utils.tree import tree_map
+    return tree_map(lambda v: v.detach().cpu().clone(), tree)
+
+
+def _load_adam(opt, params: list, sd: dict, mesh) -> None:
+    """``sd`` (a one-process Adam state) into ``opt``, this rank's columns
+    of a column-sharded leaf's moments."""
+    import copy
+
+    from gan_rl_3d_tpu_torch.parallel import mesh as mesh_lib
+
+    opt.load_state_dict(copy.deepcopy(sd))
+    for p in params:
+        if mesh_lib.is_model_sharded(p):
+            st = opt.state[p]
+            for k in ("exp_avg", "exp_avg_sq"):
+                st[k] = mesh_lib.column_block(mesh, st[k]).contiguous()
+
+
+def _set_lr(opt, scale: float) -> None:
+    for g in opt.param_groups:
+        g["lr"] = g["lr"] * scale
+
+
+def multi_ae(inputs, start, i, mesh, dev, bn_stats, lr_scale=1.0):
+    """AE step ``i`` of the inputs from ``start`` (params, state, Adam
+    state) under ``mesh``: (loss, network, Adam state)."""
+    from gan_rl_3d_tpu_torch.parallel import mesh as mesh_lib
+    from gan_rl_3d_tpu_torch.train import steps
+    from gan_rl_3d_tpu_torch.utils.tree import tree_leaves
+
+    cfg = inputs["cfg"]
+    params = _on(start["params"], dev, grad=True)
+    state = _on(start["state"], dev)
+    opt, _ = steps.make_ae_optimizer(params, cfg.training.autoencoder, 10)
+    _load_adam(opt, tree_leaves(params), start["opt"], mesh)
+    _set_lr(opt, lr_scale)
+    batch = mesh_lib.shard_batch(mesh, _on(inputs["ae_batches"][i], dev))
+    state, m = steps.ae_train_step(
+        params, state, opt, batch, _on(inputs["ae_draws"][i], dev),
+        spec=cfg.preproc_spec(), bn_stats=bn_stats, mesh=mesh)
+    return float(m["loss"]), {"params": _cpu(params), "state": _cpu(state),
+                              "opt": opt.state_dict()}
+
+
+def multi_jobs(inputs, mesh, dev, tp: bool) -> dict:
+    """The multi path's steps at the flagship widths from the inputs'
+    weights and draws, under ``mesh`` (None: the one-process reference):
+    the AE steps in both BN modes (each from the one-process state before
+    it), a combined LGAN step, an rl_step of B_MAIN environments, a joint
+    step (column-sharded on a mesh with a model axis) and DP serving."""
+    from gan_rl_3d_tpu_torch.models import inference
+    from gan_rl_3d_tpu_torch.parallel import mesh as mesh_lib
+
+    cfg = inputs["cfg"]
+    out = {}
+    if tp:
+        out["joint"] = multi_joint(inputs, mesh, dev)
+        return out
+    for mode in ("centered", "single_read_grouped"):
+        out[f"ae_{mode}"] = [
+            multi_ae(inputs, start, i, mesh, dev, mode)[:2]
+            for i, start in enumerate(inputs[f"ae_starts_{mode}"])]
+    warm = inputs["lgan_warm"]
+    real = inputs["lgan_real"]
+    if mesh is not None:
+        real = mesh_lib.local_rows(mesh, real, axis=1)
+    sm, nets = lgan_step_on(dev, warm, cfg, real, inputs["lgan_draws"],
+                            mesh=mesh)
+    out["lgan"] = ({k: float(v) for k, v in sm.items()}, _cpu(nets))
+    model, out["rl"] = multi_rl(inputs, mesh, dev)
+    out["joint"] = multi_joint(inputs, mesh, dev)
+    engine = inference.prepare_inference_engine(
+        {**model, "agent": {"actor": model["agent"]["actor"]}})
+    served = inference.complete_fast(engine, inputs["serve_pc"].to(dev),
+                                     mesh=mesh)
+    out["serve"] = served["hybrid_output"].cpu()
+    return out
+
+
+def multi_td3(cfg, lr_scale: float = 1.0):
+    """The multi path's TD3 config: the flagship's, its actor warmup cut
+    to 0 so that the actor takes its updates in the one rl_step (the
+    flagship waits 2000 TD3 updates), both lrs scaled by ``lr_scale``."""
+    td3 = cfg.td3_config()
+    return td3._replace(actor_warmup=0, actor_lr=td3.actor_lr * lr_scale,
+                        critic_lr=td3.critic_lr * lr_scale)
+
+
+def multi_rl(inputs, mesh, dev, lr_scale=1.0):
+    """One rl_step of B_MAIN environments sharded over ``mesh``, its TD3
+    updates replicated, from the warm agent and a prefilled ring: (the
+    model, (metrics, the agent's networks, the step's ring rows, ring
+    size, OU state))."""
+    from gan_rl_3d_tpu_torch.convert import agent_from_numpy
+    from gan_rl_3d_tpu_torch.models import rl_agent as rl
+    from gan_rl_3d_tpu_torch.parallel import mesh as mesh_lib
+    from gan_rl_3d_tpu_torch.train import replay_buffer as rb
+    from gan_rl_3d_tpu_torch.train import steps
+
+    cfg = inputs["cfg"]
+    td3 = multi_td3(cfg, lr_scale)
+    rc = cfg.training.rl_agent
+    model = {k: {"params": _on(inputs["model"][k]["params"], dev),
+                 "state": _on(inputs["model"][k]["state"], dev)}
+             for k in ("ae", "lgan")}
+    model["agent"] = agent_from_numpy(inputs["agent"], td3, device=dev)
+    bsz, prefill = len(inputs["rl_batch"]["pad"]), inputs["rl_prefill"]
+    buf = rb.ReplayBuffer(cfg.model.rl_agent.buffer_size, td3.state_dim,
+                          td3.action_dim, dev)
+    buf.add_batch(random_transitions(prefill, td3, 52, dev))
+    ou = rl.ou_init(td3, (bsz,), dev)
+    model, buf, ou, m = steps.rl_step(
+        model, buf, ou, mesh_lib.shard_batch(mesh, _on(inputs["rl_batch"],
+                                                       dev)),
+        _on(inputs["rl_draws"], dev), cfg=td3, start_training_size=0,
+        updates_per_step=rc.updates_per_step, spec=cfg.preproc_spec(),
+        mesh=mesh, w_chamfer=cfg.loss.w_chamfer, w_gfv=cfg.loss.w_gfv,
+        w_discriminator=cfg.loss.w_discriminator)
+    return model, ({"reward": float(m["reward"])},
+                   {k: _cpu(model["agent"][k]) for k in
+                    ("actor", "critic1", "critic2")},
+                   {k: getattr(buf, k)[prefill:prefill + bsz].cpu()
+                    for k in rb.FIELDS}, buf.size, ou.cpu())
+
+
+def multi_joint(inputs, mesh, dev, lr_scale=1.0):
+    """One f32 joint step of B_MAIN clouds from the warm joint model and
+    Adam state, the model placed on ``mesh``: (metrics, networks)."""
+    from gan_rl_3d_tpu_torch.parallel import mesh as mesh_lib
+    from gan_rl_3d_tpu_torch.train import steps
+    from gan_rl_3d_tpu_torch.utils.tree import tree_leaves
+
+    cfg = inputs["cfg"]
+    tr = _trainer_view(cfg)
+    jc = cfg.training.joint
+    model, sd = inputs["joint_warm"]
+    model = mesh_lib.shard_model_for_mesh(mesh, _joint_model(model, dev))
+    trainable = steps.joint_trainable(model, jc.freeze_generator)
+    opt = steps.make_joint_optimizer(trainable, jc)
+    _load_adam(opt, tree_leaves(trainable), sd, mesh)
+    _set_lr(opt, lr_scale)
+    model, m = steps.joint_train_step(
+        model, opt, mesh_lib.shard_batch(mesh, _on(inputs["joint_batch"],
+                                                   dev)),
+        _on(inputs["joint_draws"], dev), mesh=mesh, **_joint_kw(tr))
+    nets = _joint_networks(mesh_lib.gather_model(mesh, model))
+    return {k: float(v) for k, v in m.items()}, _cpu(nets)
+
+
+def multi_inputs(cfg, device) -> dict:
+    """Weights, warm Adam states, batches and draws of the multi path, on
+    the CPU: one seed for every rank and the one-process reference. The AE
+    trajectory is the reference's, on the card: each rank's step starts
+    from the state before it."""
+    import types
+
+    from gan_rl_3d_tpu_torch.convert import agent_to_numpy
+    from gan_rl_3d_tpu_torch.models import rl_gan_net as net
+    from gan_rl_3d_tpu_torch.ops import pointcloud as pc_ops
+    from gan_rl_3d_tpu_torch.train import steps
+
+    cpu = torch.device("cpu")
+    model = net.init_model(torch.Generator().manual_seed(0), cfg, cpu)
+    td3 = multi_td3(cfg)
+    spec = cfg.preproc_spec()
+    gen = torch.Generator().manual_seed(90)
+    pc, _ = make_clouds(B_MAIN, N_MAIN, seed=91, device=cpu)
+    inputs = {"cfg": cfg,
+              "model": {k: _cpu(model[k]) for k in ("ae", "lgan")},
+              "ae_batches": [{"complete_pc": make_clouds(
+                  B_MAIN, N_MAIN, seed=92 + i, device=cpu)[0],
+                  "pad": torch.zeros(B_MAIN)}
+                  for i in range(MULTI_AE_STEPS)],
+              "ae_draws": [pc_ops.draw_training_batch(gen, B_MAIN, N_MAIN,
+                                                      spec=spec)
+                           for _ in range(MULTI_AE_STEPS)],
+              "rl_batch": {"complete_pc": pc, "pad": torch.zeros(B_MAIN)},
+              "rl_prefill": RL_PREFILL,
+              "serve_pc": make_clouds(B_MAIN, N_MAIN, seed=96, device=cpu)[0]}
+    rc = cfg.training.rl_agent
+    inputs["rl_draws"] = steps.draw_rl_step(
+        gen, B_MAIN, N_MAIN, cfg=td3,
+        buffer_size=min(RL_PREFILL + B_MAIN, cfg.model.rl_agent.buffer_size),
+        updates_per_step=rc.updates_per_step, spec=spec)
+    inputs["agent"] = agent_to_numpy(agent_warm(model["agent"], td3, 93))
+    lc = cfg.training.lgan
+    real = 0.3 * torch.randn(lc.d_steps, B_MAIN, cfg.model.lgan.latent_dim,
+                             generator=gen)
+    warm_cfg = types.SimpleNamespace(training=cfg.training, model=cfg.model)
+    inputs["lgan_real"] = real
+    inputs["lgan_warm"] = lgan_warm(model["lgan"], warm_cfg,
+                                    real[:, :lc.batch_size], 94)
+    inputs["lgan_draws"] = steps.draw_lgan_combined(
+        gen, B_MAIN, cfg.model.lgan.z_dim, cfg.model.lgan.discriminator_dims,
+        lc.d_steps)
+    tr = types.SimpleNamespace(**vars(_trainer_view(cfg)), model=model)
+    inputs["joint_warm"] = joint_warm(tr, 95)
+    inputs["joint_batch"], inputs["joint_draws"] = joint_batch(tr, 97,
+                                                               bsz=B_MAIN)
+    # the AE's warm Adam: one step on the CPU, then the card's trajectory
+    ae_params = _on(model["ae"]["params"], cpu, grad=True)
+    opt, _ = steps.make_ae_optimizer(ae_params, cfg.training.autoencoder, 10)
+    state, _ = steps.ae_train_step(
+        ae_params, _cpu(model["ae"]["state"]), opt,
+        {"complete_pc": pc, "pad": torch.zeros(B_MAIN)},
+        pc_ops.draw_training_batch(gen, B_MAIN, N_MAIN, spec=spec),
+        spec=spec)
+    for mode in ("centered", "single_read_grouped"):
+        start = {"params": _cpu(ae_params), "state": _cpu(state),
+                 "opt": opt.state_dict()}
+        starts = []
+        for i in range(MULTI_AE_STEPS):
+            starts.append(start)
+            _, nxt = multi_ae(inputs, start, i, None, device, mode)
+            start = nxt
+        inputs[f"ae_starts_{mode}"] = starts
+    return inputs
+
+
+def _multi_errs(res, ref, start) -> tuple:
+    update, state, worst, noise = network_errs(res, ref, start)
+    return update, state, noise
+
+
+def _check_nets(what, got, ref, start, moved, tol, noise_tol, frozen=None):
+    """Each network's update against the one process's (network_errs):
+    within ``tol`` in the 2-norm and its state leaves within TOL_RL_PARAM
+    of their largest element, or 4 x what the one-process run moves when
+    its input clouds move by one part in 10^7 (``moved``), where that is
+    more; the Adam-noise leaves within ``noise_tol``; a run at lr 0
+    (``frozen``) must read over the update's bound."""
+    for name in ref:
+        floor, floor_state, _ = _multi_errs(moved[name], ref[name],
+                                            start[name])
+        bound = max(tol, 4 * floor)
+        state_bound = max(TOL_RL_PARAM, 4 * floor_state)
+        update, state, noise = _multi_errs(got[name], ref[name], start[name])
+        expect(update <= bound and state <= state_bound
+               and noise <= noise_tol,
+               f"{what} {name}: update {update:.3e} (tol {bound:.3e}), state "
+               f"{state:.3e} (tol {state_bound:.3e}), noise {noise:.3e} "
+               f"(tol {noise_tol:.3e})")
+        wrong = (None if frozen is None else
+                 _multi_errs(frozen[name], ref[name], start[name])[0])
+        print(f"  {what} {name}: update {update:.3e} of the one process's "
+              f"(its own under a 1e-7 input change {floor:.3e}), state "
+              f"{state:.3e} ({floor_state:.3e}), Adam noise {noise:.3e}"
+              + ("" if wrong is None else f", lr 0 reads {wrong:.3e}"))
+        expect(wrong is None or wrong > bound,
+               f"{what} {name}: lr 0 passed the check ({wrong})")
+
+
+def _close(what, got, ref, rtol):
+    err = abs(got - ref) / max(abs(ref), 1e-30)
+    expect(err <= rtol, f"{what}: {got} against {ref} ({err:.2e} > {rtol:g})")
+    return err
+
+
+def check_multi(res, ref, frozen, moved, inputs, what):
+    """One rank's results of ``multi_jobs`` against the one-process
+    reference on the card (``moved``: the reference with its input clouds
+    moved by one part in 10^7, the steps' own conditioning)."""
+    cfg = inputs["cfg"]
+    if "ae_centered" in res:
+        lr = cfg.training.autoencoder.lr
+        for mode in ("centered", "single_read_grouped"):
+            for i, ((loss, net), (rloss, rnet), start) in enumerate(zip(
+                    res[f"ae_{mode}"], ref[f"ae_{mode}"],
+                    inputs[f"ae_starts_{mode}"])):
+                _close(f"{what} AE {mode} step {i} loss", loss, rloss,
+                       TOL_MULTI_LOSS)
+                _check_nets(f"{what} AE {mode} step {i}", {"ae": net},
+                            {"ae": rnet}, {"ae": start},
+                            {"ae": moved[f"ae_{mode}"][i][1]}, TOL_RL_UPDATE,
+                            2 * lr, frozen["ae"] if mode == "centered"
+                            and i == 0 else None)
+        (lm, lnets), (rlm, rlnets) = res["lgan"], ref["lgan"]
+        for k in rlm:
+            _close(f"{what} LGAN {k}", lm[k], rlm[k], TOL_MULTI_LOSS)
+        lc = cfg.training.lgan
+        warm = inputs["lgan_warm"][0]
+        lstart = {k: {"params": warm["params"][k], "state": warm["state"][k]}
+                  for k in ("generator", "discriminator")}
+        _check_nets(f"{what} LGAN", lnets, rlnets, lstart, moved["lgan"][1],
+                    TOL_RL_UPDATE,
+                    2 * max(lc.generator_lr, lc.discriminator_lr) * lc.d_steps,
+                    frozen["lgan"])
+        (rm, agent, ring, size, ou), (rrm, ragent, rring, rsize, rou) = (
+            res["rl"], ref["rl"])
+        _close(f"{what} rl_step reward", rm["reward"], rrm["reward"],
+               TOL_MULTI_LOSS)
+        expect(size == rsize, f"{what} ring size {size} against {rsize}")
+        for k in ring:
+            expect(torch.allclose(ring[k], rring[k], rtol=1e-5, atol=1e-4),
+                   f"{what} ring {k}: {(ring[k] - rring[k]).abs().max()}")
+        expect(torch.allclose(ou, rou, atol=1e-5), f"{what} OU state")
+        td3 = multi_td3(cfg)
+        astart = {k: {"params": inputs["agent"][k]["params"],
+                      "state": inputs["agent"][k]["state"]}
+                  for k in ("actor", "critic1", "critic2")}
+        _check_nets(f"{what} rl_step", agent, ragent, _np_tensors(astart),
+                    moved["rl"][1], TOL_RL_UPDATE,
+                    2 * max(td3.actor_lr, td3.critic_lr)
+                    * cfg.training.rl_agent.updates_per_step, frozen["rl"])
+        err = scaled_err(res["serve"], ref["serve"])
+        expect(err <= TOL_MULTI_SERVE,
+               f"{what} DP serving: {err:.2e} > {TOL_MULTI_SERVE:g}")
+        print(f"  {what} DP serving (f32 engine): {err:.2e} of the largest "
+              f"output element")
+    (jm, jnets), (rjm, rjnets) = res["joint"], ref["joint"]
+    _close(f"{what} joint loss", jm["loss"], rjm["loss"], TOL_MULTI_LOSS)
+    wstart = _joint_networks(inputs["joint_warm"][0])
+    _check_nets(f"{what} joint", jnets, rjnets, wstart, moved["joint"][1],
+                TOL_JOINT_UPDATE, 2 * cfg.training.joint.lr, frozen["joint"])
+
+
+def _moved_inputs(inputs) -> dict:
+    """The inputs with every cloud and real GFV scaled by 1 + 1e-7."""
+    def up(x):
+        return x * (1.0 + 1e-7)
+
+    def batch(b):
+        return {**b, "complete_pc": up(b["complete_pc"])}
+
+    return {**inputs, "ae_batches": [batch(b) for b in inputs["ae_batches"]],
+            "rl_batch": batch(inputs["rl_batch"]),
+            "joint_batch": batch(inputs["joint_batch"]),
+            "lgan_real": up(inputs["lgan_real"])}
+
+
+def _np_tensors(tree):
+    from gan_rl_3d_tpu_torch.utils.tree import tree_map
+    return tree_map(lambda v: torch.as_tensor(np.asarray(v)), tree)
+
+
+def phase_multi(device, cfg, tmp: Path) -> dict:
+    """The multi path: (a) ``phase_multi_torchrun``; (b) 2 and 4 ranks
+    sharing the one card over gloo (host-staged collectives), each rank
+    running ``multi_jobs`` from the same weights and draws, held against
+    the one-process reference on the card; at 4 ranks also a 2x2 (data,
+    model) joint step with the decoder head column-sharded; (c) the same
+    over NCCL on min(device count, 4) cards when more than one is
+    visible. Returns the launches of every rank and of (a), summed."""
+    import torch.multiprocessing as mp
+
+    counts = dict(phase_multi_torchrun(device, cfg, tmp))
+    inputs = multi_inputs(cfg, device)
+    ref = multi_jobs(inputs, None, device, tp=False)
+    moved = multi_jobs(_moved_inputs(inputs), None, device, tp=False)
+    frozen = {
+        "ae": {"ae": multi_ae(inputs, inputs["ae_starts_centered"][0], 0,
+                              None, device, "centered", lr_scale=0.0)[1]},
+        "lgan": lgan_step_on(device, inputs["lgan_warm"], cfg,
+                             inputs["lgan_real"], inputs["lgan_draws"],
+                             lr_scale=0.0)[1],
+        "rl": multi_rl(inputs, None, device, lr_scale=0.0)[1][1],
+        "joint": multi_joint(inputs, None, device, lr_scale=0.0)[1]}
+    frozen["lgan"] = _cpu(frozen["lgan"])
+    inputs_path = tmp / "multi_inputs.pt"
+    torch.save(inputs, inputs_path)
+    runs = [("gloo", world) for world in MULTI_WORLDS]
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        runs.append(("nccl", min(n_cards, 4)))
+    else:
+        print(f"multi (c): NCCL across cards not run: {n_cards} card "
+              "visible (it needs 2 or more)")
+    for backend, world in runs:
+        shapes = [(world, 1)] + ([(2, 2)] if world == 4 else [])
+        out_dir = tmp / f"multi_{backend}{world}"
+        out_dir.mkdir()
+        t0 = time.perf_counter()
+        mp.spawn(_multi_rank, args=(world, backend, str(out_dir / "store"),
+                                    str(inputs_path), str(out_dir), shapes),
+                 nprocs=world, join=True)
+        print(f"multi ({'b' if backend == 'gloo' else 'c'}): {world} ranks "
+              f"over {backend}, meshes {shapes}, in "
+              f"{time.perf_counter() - t0:.2f}s")
+        for shape in shapes:
+            tag = f"{shape[0]}x{shape[1]}"
+            for rank in range(world):
+                res = torch.load(out_dir / f"{tag}.{rank}.pt",
+                                 weights_only=False)
+                check_multi(res, ref, frozen, moved, inputs,
+                            f"{backend} {tag} rank {rank}")
+                for k, v in res["launches"].items():
+                    counts[k] = counts.get(k, 0) + v
+                if rank == 0:
+                    print(f"multi {backend} {tag} rank 0 collectives: "
+                          f"{res['collectives']}, launches "
+                          f"{res['launches']}")
+                    for step, r in (res["times"] or {}).items():
+                        print(f"multi {backend} {tag} {step} f32 B={B_MAIN} "
+                              f"global, rank 0 ({card_line()}; {world} ranks"
+                              f" {'sharing one card' if backend == 'gloo' else 'on their own cards'}"
+                              f", not a scaling figure): {r['ms']:.3f} ms, "
+                              f"{r['collectives']} collectives a step, "
+                              f"device busy {r['device_busy_ms']:.3f} ms")
+    for name in MULTI_KERNELS:
+        expect(counts.get(name, 0) > 0, f"{name} never launched on the "
+               "multi path")
+    print(f"multi-path launches: {counts}")
+    return counts
+
+
 KERNELS = {
     "encoder_pool_f32": ("gan_rl_3d_tpu_torch/csrc/encoder_pool.cu",
                          "gan_rl_3d_tpu/ops/encoder_kernel.py:151"),
@@ -3395,7 +4080,7 @@ def phase_rl_times(device, trainer):
     buf = rb.ReplayBuffer(cfg.model.rl_agent.buffer_size, td3.state_dim,
                           td3.action_dim, device)
     buf.add_batch(random_transitions(RL_PREFILL, td3, 52, device))
-    data = trainer._resident_train_data()
+    data, _ = trainer._resident_train_data()
     envs = rc.envs_per_step
     ou = rl.ou_init(td3, (envs,), device)
     weights = dict(w_chamfer=cfg.loss.w_chamfer, w_gfv=cfg.loss.w_gfv,
@@ -3450,7 +4135,7 @@ def phase_joint_times(device, trainer):
     cfg = trainer.config
     jc, lc, m = cfg.training.joint, cfg.training.lgan, cfg.model.lgan
     gen = torch.Generator(device).manual_seed(70)
-    data = trainer._resident_train_data()
+    data, _ = trainer._resident_train_data()
     holder = {"model": _joint_model(trainer.model, device)}
     opt = steps.make_joint_optimizer(
         steps.joint_trainable(holder["model"], jc.freeze_generator), jc)
@@ -3541,6 +4226,7 @@ def main() -> None:
         joint_checks(device, jtrainer)
         trained_path = phase_trained(device, tmp, cfg, random_errs)
         data_path = phase_data(device, tmp)
+        multi_path = phase_multi(device, cfg, tmp)
         # every time is taken before the first trace of the process
         rows = phase_times(device, engine, engine_bf16, engine_q)
         rl_cases = phase_rl_times(device, trainer)
@@ -3565,7 +4251,8 @@ def main() -> None:
                    "joint": joint_path.get(name, 0),
                    "trained": trained_path.get(name, 0),
                    "data": data_path.get(name, 0),
-                   "variant": variant_path.get(name, 0)}
+                   "variant": variant_path.get(name, 0),
+                   "multi": multi_path.get(name, 0)}
         expect(name in WIDE_INSTANCES or sum(by_path.values()) > 0,
                f"{name} never launched on a main path")
         expect(checks.get(name, 0) > 0, f"{name} never checked")
@@ -3597,4 +4284,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--torchrun-child"]:
+        torchrun_child(*sys.argv[2:4])
+    else:
+        main()

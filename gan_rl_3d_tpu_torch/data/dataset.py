@@ -22,6 +22,9 @@ import numpy as np
 
 from gan_rl_3d_tpu_torch import runtime
 from gan_rl_3d_tpu_torch.data.synthetic import create_synthetic_dataset
+# the shard-aligned batch plan's slot groups under training.data_residency
+# "sharded"; importable from here as before
+from gan_rl_3d_tpu_torch.parallel.mesh import DATA_SHARD_GROUPS  # noqa: F401
 
 CATEGORY_MAPPING = {
     "airplane": "02691156",
@@ -33,9 +36,6 @@ CATEGORY_MAPPING = {
     "watercraft": "04530566",
     "cabinet": "02933112",
 }
-# slot groups of the shard-aligned batch plan under training.data_residency
-# "sharded": the contract of gan_rl_3d_tpu/parallel/mesh.py:60
-DATA_SHARD_GROUPS = 8
 
 
 def load_ply(path: Path) -> np.ndarray:

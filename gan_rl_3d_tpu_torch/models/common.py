@@ -8,6 +8,8 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from gan_rl_3d_tpu_torch import nn
+from gan_rl_3d_tpu_torch.parallel import collectives
+from gan_rl_3d_tpu_torch.parallel import mesh as mesh_lib
 from gan_rl_3d_tpu_torch.utils.tree import tree_leaves
 
 Tensor = torch.Tensor
@@ -66,8 +68,10 @@ def bn_mlp_apply(params: list, state: list, x: Tensor, *,
 def grad_step(opt: torch.optim.Optimizer, loss: Tensor, params) -> None:
     """One step of ``opt`` on the gradient of ``loss`` w.r.t. the leaves
     of ``params`` alone: the other networks in the graph get no gradient,
-    as with jax.grad of one argument."""
+    as with jax.grad of one argument. Under a mesh the gradients are
+    summed over the data group first (``loss`` is this rank's term)."""
     leaves = tree_leaves(params)
     for p, g in zip(leaves, torch.autograd.grad(loss, leaves)):
         p.grad = g
+    collectives.all_reduce_grads(leaves, mesh_lib.active())
     opt.step()

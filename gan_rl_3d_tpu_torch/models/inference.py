@@ -7,7 +7,10 @@ into the discriminator weights) and casts to the compute dtype.
 With ``quantize_int8`` the encoder's point-MLP is also quantized to int8
 (``ops.quantize.quantize_encoder``). ``complete_fast`` drives the engine:
 the encoder through kernel K1, or K6 for an int8 engine, then the actor,
-generator, decoder and discriminator as plain matmuls.
+generator, decoder and discriminator as plain matmuls. With ``mesh=`` it
+serves data-parallel (mesh.py, ``test_engine_serving_dp8``): the engine is
+replicated, each rank completes its rows of the batch, and the outputs
+are gathered whole on every rank.
 
 The engine is a dictionary in the JAX engine's layout, so a JAX-written
 f32 engine file (int8 or not) loads as it is:
@@ -29,6 +32,8 @@ import torch
 from gan_rl_3d_tpu_torch import nn
 from gan_rl_3d_tpu_torch.models.rl_gan_net import check_gate_mode, gate
 from gan_rl_3d_tpu_torch.ops import encoder_kernel, quantize
+from gan_rl_3d_tpu_torch.parallel import collectives
+from gan_rl_3d_tpu_torch.parallel import mesh as mesh_lib
 from gan_rl_3d_tpu_torch.utils.checkpoint import NumpyUnpickler, to_numpy
 from gan_rl_3d_tpu_torch.utils.tree import tree_map
 
@@ -200,7 +205,8 @@ def _apply_discriminator(layers: list, x: Tensor, dtype: torch.dtype,
 def complete_fast(engine: dict, pc: Tensor, mask: Optional[Tensor] = None, *,
                   hybrid: bool = True,
                   gate_mode: str = "discriminator",
-                  gate_bias: float = 0.0) -> Dict[str, Tensor]:
+                  gate_bias: float = 0.0,
+                  mesh: Optional[mesh_lib.Mesh] = None) -> Dict[str, Tensor]:
     """Folded completion with the outputs of models.rl_gan_net.complete
     (add_noise=False) (inference.py:166-255).
 
@@ -208,7 +214,15 @@ def complete_fast(engine: dict, pc: Tensor, mask: Optional[Tensor] = None, *,
     ``prepare_inference_engine`` and ``load_engine``). The encoder is K1 on
     a CUDA tensor in either dtype, or K6 and the f32 head for an engine
     with ``encoder_q`` (inference.py:196-201); the device of ``pc``
-    decides, there is no switch."""
+    decides, there is no switch. Under ``mesh`` ``pc`` (and ``mask``) are
+    the global batch: each rank completes its rows and every output is
+    gathered whole."""
+    if mesh is not None and mesh.n_data > 1:
+        local = complete_fast(
+            engine, mesh_lib.local_rows(mesh, pc),
+            None if mask is None else mesh_lib.local_rows(mesh, mask),
+            hybrid=hybrid, gate_mode=gate_mode, gate_bias=gate_bias)
+        return {k: collectives.gather_rows(v, mesh) for k, v in local.items()}
     check_gate_mode(gate_mode)
     dtype = engine["encoder"]["layers"][0][0].dtype
     bsz = pc.shape[0]

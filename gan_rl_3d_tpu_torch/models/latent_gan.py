@@ -8,7 +8,9 @@ activation. Without ``sn`` state it is the plain variant. Both apply
 functions return (output, new state), as the JAX ones do: in training the
 generator's BN statistics and the spectral-norm vectors advance once per
 call. Dropout takes its keep masks, one per hidden layer, as drawn by
-``draw_dropout_masks`` or replayed from JAX's keys.
+``draw_dropout_masks`` or replayed from JAX's keys. Under a mesh whose
+model axis shards a layer by column (``parallel.mesh``), the layer
+computes this rank's columns and gathers the rest before the next one.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import torch
 
 from gan_rl_3d_tpu_torch import nn
 from gan_rl_3d_tpu_torch.models.common import bn_mlp_apply, bn_mlp_init
+from gan_rl_3d_tpu_torch.parallel import collectives
+from gan_rl_3d_tpu_torch.parallel import mesh as mesh_lib
 
 Tensor = torch.Tensor
 
@@ -113,7 +117,12 @@ def discriminator_apply(params: dict, state: dict, gfv: Tensor, *,
         if "sn" in s:
             w, layer_s["sn"] = nn.spectral_norm_apply(w, s["sn"],
                                                       training=training)
+        sharded = mesh_lib.is_model_sharded(p["dense"]["w"])
+        if sharded:
+            x = collectives.enter_columns(x, mesh_lib.active())
         x = x @ w + p["dense"]["b"]
+        if sharded:
+            x = collectives.gather_columns(x, mesh_lib.active())
         if "ln" in p:
             x = nn.leaky_relu(nn.layernorm(p["ln"], x), leak)
             if masks is not None:

@@ -6,6 +6,13 @@ Initialisers draw from an explicit ``torch.Generator``. BatchNorm runs in
 eval mode and in both training statistics modes of the JAX package;
 LayerNorm, dropout (given its keep mask) and spectral norm with its
 power iteration follow nn.py:270-349.
+
+Under a mesh (``parallel.mesh.active()``) training BatchNorm takes its
+statistics across the data group, and a leaf ``shard_model_for_mesh``
+marked as column-sharded computes this rank's columns: ``dense`` gathers
+its output columns over the model group, BatchNorm normalises this rank's
+columns with its own parameters and state, LayerNorm and spectral norm
+gather what they read whole. Without a mesh nothing here communicates.
 """
 
 from __future__ import annotations
@@ -14,6 +21,9 @@ import math
 from typing import Callable, Optional, Tuple
 
 import torch
+
+from gan_rl_3d_tpu_torch.parallel import collectives
+from gan_rl_3d_tpu_torch.parallel import mesh as mesh_lib
 
 Tensor = torch.Tensor
 
@@ -70,18 +80,46 @@ def batchnorm_init(dim: int) -> Tuple[dict, dict]:
             {"mean": torch.zeros(dim), "var": torch.ones(dim)})
 
 
+def _sharded_mesh(leaf: Tensor) -> Optional[mesh_lib.Mesh]:
+    """The active mesh when ``leaf`` is column-sharded, else None."""
+    if not mesh_lib.is_model_sharded(leaf):
+        return None
+    mesh = mesh_lib.active()
+    if mesh is None:
+        raise RuntimeError("a column-sharded leaf runs only under its mesh "
+                           "(parallel.mesh.use)")
+    return mesh
+
+
+def _whole(leaf: Tensor) -> Tensor:
+    """``leaf``, or every model rank's columns of it when it is sharded."""
+    mesh = _sharded_mesh(leaf)
+    return leaf if mesh is None else collectives.gather_columns(leaf, mesh)
+
+
 def dense(params: dict, x: Tensor) -> Tensor:
     """``x @ w + b`` with f32 accumulation; the result follows the weight's
-    dtype (nn.py:92-100)."""
+    dtype (nn.py:92-100). A column-sharded layer computes this rank's
+    columns and gathers the rest."""
     w = params["w"]
-    y = torch.matmul(x.float(), w.float()) + params["b"].float()
-    return y.to(w.dtype)
+    mesh = _sharded_mesh(w)
+    if mesh is not None:
+        x = collectives.enter_columns(x, mesh)
+    y = (torch.matmul(x.float(), w.float()) + params["b"].float()).to(w.dtype)
+    return y if mesh is None else collectives.gather_columns(y, mesh)
 
 
 def batchnorm_eval(params: dict, state: dict, x: Tensor, *,
                    eps: float = 1e-5) -> Tensor:
     """BatchNorm with running statistics, normalising the last axis
     (nn.py:262-267). Computed in f32; the output follows the input dtype."""
+    mesh = _sharded_mesh(params["scale"])
+    if mesh is not None:
+        y = batchnorm_eval(_unmarked(params), _unmarked(state),
+                           mesh_lib.column_block(
+                               mesh, collectives.enter_columns(x, mesh)),
+                           eps=eps)
+        return collectives.gather_columns(y, mesh)
     inv = torch.rsqrt(state["var"].float() + eps)
     y = ((x.float() - state["mean"].float())
          * (inv * params["scale"].float()) + params["bias"].float())
@@ -98,6 +136,30 @@ BN_STATS_MODES = ("centered", "single_read_grouped")
 BN_GROUPS = 8
 
 
+def validate_bn_stats_mesh(bn_stats: str, data_shards: int,
+                           segments: int = 1) -> None:
+    """Refuse single_read_grouped where the data axis does not divide the
+    fixed BN_GROUPS: a group would straddle ranks (nn.py:141-153). A step
+    whose BN input concatenates ``segments`` sharded batches (the joint
+    step's (2B, .) decoder pass, ``parallel.mesh.segments``) needs
+    ``segments`` x the data axis to divide them."""
+    if bn_stats == "single_read_grouped" and \
+            BN_GROUPS % (segments * data_shards) != 0:
+        what = (f"data mesh axis ({data_shards} shards)" if segments == 1
+                else f"{segments} x the data mesh axis ({data_shards} "
+                f"shards; {segments} batches decoded in one pass)")
+        raise ValueError(
+            f"training.bn_stats='single_read_grouped' requires the {what} "
+            f"to divide _BN_GROUPS={BN_GROUPS}; use bn_stats='centered' on "
+            f"larger meshes (see docs/PERF.md #7)")
+
+
+def _unmarked(tree: dict) -> dict:
+    """Shallow copies of ``tree``'s tensors without the column-sharded
+    mark, for the local computation on this rank's columns."""
+    return {k: v.view_as(v) for k, v in tree.items()}
+
+
 def _neumaier_combine(parts: Tensor) -> Tensor:
     """Sum the leading axis of ``parts`` (G, C) in a fixed sequential order
     with Neumaier compensation (nn.py:170-184)."""
@@ -111,14 +173,32 @@ def _neumaier_combine(parts: Tensor) -> Tensor:
     return s + c
 
 
-def _grouped_moments(x32: Tensor) -> Tuple[Tensor, Tensor]:
+def _grouped_moments(x32: Tensor, mesh: Optional[mesh_lib.Mesh] = None
+                     ) -> Tuple[Tensor, Tensor]:
     """(mean, biased var) over all but the last axis in one read, in
-    BN_GROUPS groups of the leading axis (nn.py:187-200)."""
+    BN_GROUPS groups of the leading axis (nn.py:187-200). Under a mesh
+    each rank holds BN_GROUPS / n_data whole groups of every segment
+    (``parallel.mesh.segments``); their sums and sums of squares are
+    gathered in rank order, so every rank combines the same 8 partials a
+    single device does."""
     ch = x32.shape[-1]
     n = x32.numel() // ch
-    xg = x32.reshape(BN_GROUPS, n // BN_GROUPS, ch)
-    total = _neumaier_combine(xg.sum(dim=1))
-    total_sq = _neumaier_combine((xg * xg).sum(dim=1))
+    if mesh is None:
+        xg = x32.reshape(BN_GROUPS, n // BN_GROUPS, ch)
+        s, q = xg.sum(dim=1), (xg * xg).sum(dim=1)
+    else:
+        seg = mesh_lib.active_segments()
+        # validate_bn_stats_mesh refuses such a mesh before a step runs
+        assert BN_GROUPS % (seg * mesh.n_data) == 0, (seg, mesh.n_data)
+        xg = x32.reshape(seg, BN_GROUPS // (seg * mesh.n_data), -1, ch)
+        parts = torch.stack([xg.sum(dim=2), (xg * xg).sum(dim=2)])
+        parts = collectives.all_gather(parts[None], mesh.data_group)
+        # (rank, moment, segment, group) -> (moment, segment, rank, group)
+        parts = parts.permute(1, 2, 0, 3, 4).reshape(2, BN_GROUPS, ch)
+        s, q = parts[0], parts[1]
+        n *= mesh.n_data
+    total = _neumaier_combine(s)
+    total_sq = _neumaier_combine(q)
     mean = total / n
     var = torch.clamp(total_sq / n - mean * mean, min=0.0)
     return mean, var
@@ -131,18 +211,38 @@ def batchnorm_train(params: dict, state: dict, x: Tensor, *,
     batch statistics in f32 by ``mode`` (one of BN_STATS_MODES),
     normalised with the biased variance; the running variance takes the
     unbiased one (n / (n - 1)), momentum 0.1. Returns (y in the input's
-    dtype, new state); the new state carries no gradient."""
+    dtype, new state); the new state carries no gradient. Under a mesh
+    the statistics and n are the whole data group's: the leading axis is
+    then this rank's rows of the global batch."""
     if mode not in BN_STATS_MODES:
         raise ValueError(f"bn_stats must be one of {BN_STATS_MODES}, "
                          f"got {mode!r}")
+    tp = _sharded_mesh(params["scale"])
+    if tp is not None:
+        y, new_state = batchnorm_train(
+            _unmarked(params), _unmarked(state),
+            mesh_lib.column_block(tp, collectives.enter_columns(x, tp)),
+            mode=mode, momentum=momentum, eps=eps)
+        return (collectives.gather_columns(y, tp),
+                {k: mesh_lib.mark_model_sharded(v)
+                 for k, v in new_state.items()})
+    mesh = mesh_lib.active()
+    if mesh is not None and mesh.n_data == 1:
+        mesh = None
+    shards = mesh.n_data if mesh is not None else 1
     x32 = x.float()
     axes = tuple(range(x.ndim - 1))
-    if mode == "single_read_grouped" and x.shape[0] % BN_GROUPS == 0:
-        mean, var = _grouped_moments(x32)
-    else:
+    n = x.numel() // x.shape[-1] * shards
+    if mode == "single_read_grouped" and \
+            (x.shape[0] * shards) % BN_GROUPS == 0:
+        mean, var = _grouped_moments(x32, mesh)
+    elif mesh is None:
         mean = x32.mean(dim=axes)
         var = (x32 - mean).square().mean(dim=axes)
-    n = x.numel() // x.shape[-1]
+    else:
+        mean = collectives.sum_over_data(x32.sum(dim=axes), mesh) / n
+        var = collectives.sum_over_data(
+            (x32 - mean).square().sum(dim=axes), mesh) / n
     with torch.no_grad():
         unbiased = var * (n / max(n - 1, 1))
         new_state = {
@@ -162,7 +262,8 @@ def layernorm(params: dict, x: Tensor, *, eps: float = 1e-5) -> Tensor:
     """LayerNorm over the last axis with the biased variance (nn.py:279-283)."""
     mean = x.mean(dim=-1, keepdim=True)
     var = x.var(dim=-1, keepdim=True, unbiased=False)
-    return (x - mean) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
+    return ((x - mean) * torch.rsqrt(var + eps) * _whole(params["scale"])
+            + _whole(params["bias"]))
 
 
 def leaky_relu(x: Tensor, leak: float = 0.2) -> Tensor:
@@ -193,17 +294,29 @@ def spectral_norm_apply(w: Tensor, state: dict, *, training: bool,
     order for an (out, in) weight: v = normalize(W^T u), u =
     normalize(W v)). u and v are constants for differentiation while sigma
     = v . (W u) stays a function of w, so WGAN-GP's double backward runs
-    through w / sigma."""
-    u, v = state["u"].detach(), state["v"].detach()
+    through w / sigma. Column-sharded leaves are gathered whole for the
+    iteration and sigma, so every rank keeps the same u and v; the result
+    is ``w`` (this rank's columns) over sigma."""
+    u, v = _whole(state["u"]).detach(), _whole(state["v"]).detach()
+    w_all = _whole(w)
     if training:
-        w_c = w.detach()
+        w_c = w_all.detach()
         for _ in range(n_iter):
             v = w_c @ u
             v = v / (torch.linalg.vector_norm(v) + eps)
             u = v @ w_c
             u = u / (torch.linalg.vector_norm(u) + eps)
-        state = {"u": u, "v": v}
-    return w / torch.dot(v, w @ u), state
+        mesh = mesh_lib.active()
+        state = {k: (mesh_lib.mark_model_sharded(
+            mesh_lib.column_block(mesh, new).contiguous())
+            if mesh_lib.is_model_sharded(state[k]) else new)
+            for k, new in (("u", u), ("v", v))}
+    sigma = torch.dot(v, w_all @ u)
+    tp = _sharded_mesh(w)
+    if tp is not None:
+        # every column's output reads sigma
+        sigma = collectives.enter_columns(sigma, tp)
+    return w / sigma, state
 
 
 def dropout(x: Tensor, keep_mask: Optional[Tensor], rate: float) -> Tensor:

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Callable, Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +25,8 @@ from gan_rl_3d_tpu_torch.models import rl_agent as rl
 from gan_rl_3d_tpu_torch.models import rl_gan_net as net
 from gan_rl_3d_tpu_torch.ops import chamfer
 from gan_rl_3d_tpu_torch.ops import pointcloud as pc_ops
+from gan_rl_3d_tpu_torch.parallel import collectives
+from gan_rl_3d_tpu_torch.parallel import mesh as mesh_lib
 
 GATE_FILE = "gate_calibration.json"
 STAT_KEYS = ("cd_rl", "cd_ae", "margin")
@@ -34,40 +36,54 @@ STAT_KEYS = ("cd_rl", "cd_ae", "margin")
 def gate_stats_step(model: dict, batch: Dict[str, torch.Tensor],
                     draws: Dict[str, torch.Tensor], *, cfg: rl.TD3Config,
                     spec: pc_ops.PreprocSpec = pc_ops.DEFAULT_PREPROC,
-                    bidirectional: bool = True) -> Dict[str, torch.Tensor]:
+                    bidirectional: bool = True,
+                    mesh: Optional[mesh_lib.Mesh] = None
+                    ) -> Dict[str, torch.Tensor]:
     """Per-sample gate inputs of one batch, holes from ``draws``, no
     augmentation (gate.py:39-57): the Chamfer distance of the GAN path and
     of the AE path against the complete cloud, and the margin D(clean) -
-    D(noisy) the gate thresholds."""
-    complete, incomplete, mask = pc_ops.apply_training_batch(
-        batch["complete_pc"], draws, spec=spec, do_augment=False)
-    out = net.complete(model, incomplete, mask, cfg=cfg,
-                       gate_mode="discriminator")
-    return {
-        "cd_rl": chamfer.chamfer_distance(out["completed_pc"], complete,
-                                          bidirectional=bidirectional),
-        "cd_ae": chamfer.chamfer_distance(out["ae_reconstruction"], complete,
-                                          bidirectional=bidirectional),
-        "margin": (out["rl_gan_score"] - out["ae_score"]).reshape(-1),
-        "pad": batch["pad"]}
+    D(noisy) the gate thresholds. Under ``mesh`` the batch is this rank's
+    rows, ``draws`` the global batch's, and the statistics come back
+    gathered whole, so every rank calibrates the same gate."""
+    with mesh_lib.use(mesh):
+        mesh = mesh_lib.active()
+        complete, incomplete, mask = pc_ops.apply_training_batch(
+            batch["complete_pc"],
+            {k: mesh_lib.local_rows(mesh, v) for k, v in draws.items()},
+            spec=spec, do_augment=False)
+        out = net.complete(model, incomplete, mask, cfg=cfg,
+                           gate_mode="discriminator")
+        stats = {
+            "cd_rl": chamfer.chamfer_distance(out["completed_pc"], complete,
+                                              bidirectional=bidirectional),
+            "cd_ae": chamfer.chamfer_distance(out["ae_reconstruction"],
+                                              complete,
+                                              bidirectional=bidirectional),
+            "margin": (out["rl_gan_score"] - out["ae_score"]).reshape(-1),
+            "pad": batch["pad"]}
+        return {k: collectives.gather_rows(v, mesh)
+                for k, v in stats.items()}
 
 
 def gate_statistics(model: dict, batches: Iterable[Dict[str, np.ndarray]],
                     draw_fn: Callable[[int, int, int], Dict[str, torch.Tensor]],
                     *, cfg: rl.TD3Config, device: torch.device,
                     spec: pc_ops.PreprocSpec = pc_ops.DEFAULT_PREPROC,
-                    bidirectional: bool = True) -> Dict[str, np.ndarray]:
+                    bidirectional: bool = True,
+                    mesh: Optional[mesh_lib.Mesh] = None
+                    ) -> Dict[str, np.ndarray]:
     """``gate_stats_step`` over a split (gate.py:60-76): batch i's holes
     are ``draw_fn(i, batch size, points)`` (fixed per batch), and the
-    padded rows are dropped. Returns host arrays."""
+    padded rows are dropped. Returns host arrays; under ``mesh`` each rank
+    runs its rows and every rank returns the whole split's."""
     cols: Dict[str, list] = {name: [] for name in STAT_KEYS}
     for i, batch in enumerate(batches):
-        pc = torch.from_numpy(batch["complete_pc"]).to(device)
+        n_points = batch["complete_pc"].shape[1]
+        local = mesh_lib.shard_batch(mesh, batch)
         m = gate_stats_step(
-            model, {"complete_pc": pc,
-                    "pad": torch.from_numpy(batch["pad"]).to(device)},
-            draw_fn(i, pc.shape[0], pc.shape[1]), cfg=cfg, spec=spec,
-            bidirectional=bidirectional)
+            model, {k: v.to(device) for k, v in local.items()},
+            draw_fn(i, len(batch["pad"]), n_points), cfg=cfg, spec=spec,
+            bidirectional=bidirectional, mesh=mesh)
         keep = np.asarray(batch["pad"]) == 0
         for name in cols:
             cols[name].append(m[name].cpu().numpy()[keep])

@@ -17,6 +17,18 @@ takes its random numbers as arguments (``draw_*`` draws them from a
 device generator), so a test can feed it the numbers JAX drew. Phases
 3-4 run BatchNorm with the centered statistics, as the JAX trainer does
 whatever training.bn_stats says.
+
+Every step takes ``mesh=`` (``parallel.mesh``; None is one device, the
+path the port always took). Under a mesh a step's batch is this rank's
+rows of the global batch (``mesh.shard_batch``) and its draws are the
+GLOBAL batch's: every rank draws the same numbers from the same seeded
+generator and keeps its own rows, which is what lets a data-parallel run
+follow the single-device trajectory. A loss is then this rank's term of
+the global loss (its rows' sum over the global count), training BatchNorm
+takes its statistics over the data group, the gradients are summed over
+it in one flat bucket before the optimizer steps, and the metrics a step
+returns are the global ones. The RL step gathers its transitions into a
+ring every rank holds whole and runs the TD3 update replicated.
 """
 
 from __future__ import annotations
@@ -36,6 +48,8 @@ from gan_rl_3d_tpu_torch.models.common import grad_step
 from gan_rl_3d_tpu_torch.ops import chamfer
 from gan_rl_3d_tpu_torch.ops import losses as losses_ops
 from gan_rl_3d_tpu_torch.ops import pointcloud as pc_ops
+from gan_rl_3d_tpu_torch.parallel import collectives
+from gan_rl_3d_tpu_torch.parallel import mesh as mesh_lib
 from gan_rl_3d_tpu_torch.train.replay_buffer import ReplayBuffer
 from gan_rl_3d_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -53,9 +67,68 @@ def _check_finite(value: Tensor, what: str) -> None:
 
 
 def _masked_mean(per_sample: Tensor, pad: Tensor) -> Tensor:
-    """Mean over real rows, leaving out the wrap-around padded rows."""
+    """Mean over real rows, leaving out the wrap-around padded rows. Under
+    a mesh the rows are this rank's and the count is the data group's:
+    the result is this rank's term of the global mean."""
     w = 1.0 - pad
-    return (per_sample * w).sum() / torch.clamp(w.sum(), min=1.0)
+    count = w.sum()
+    mesh = mesh_lib.active()
+    if mesh is not None:
+        count = collectives.sum_values(count, mesh)
+    return (per_sample * w).sum() / torch.clamp(count, min=1.0)
+
+
+def _share(batch_mean: Tensor) -> Tensor:
+    """This rank's term of a global batch mean from the mean over its own
+    rows (the data group's shards are equal)."""
+    shards = mesh_lib.data_shards()
+    return batch_mean if shards == 1 else batch_mean / shards
+
+
+def _total(term: Tensor) -> Tensor:
+    """A detached loss term summed over the data group: the global
+    value."""
+    mesh = mesh_lib.active()
+    if mesh is None:
+        return term.detach()
+    return collectives.sum_values(term, mesh)
+
+
+def _local(draws):
+    """This rank's rows of draws made for the global batch (every leaf's
+    leading axis is the batch)."""
+    mesh = mesh_lib.active()
+    if mesh is None:
+        return draws
+    return tree_map(lambda x: mesh_lib.local_rows(mesh, x), draws)
+
+
+def _sync_grads(optimizer: torch.optim.Optimizer) -> None:
+    """Sum the optimizer's gradients over the data group (one bucket)."""
+    mesh = mesh_lib.active()
+    if mesh is not None:
+        collectives.all_reduce_grads(
+            [p for g in optimizer.param_groups for p in g["params"]], mesh)
+
+
+def _resident_batch(data: Tensor, idx: Tensor, data_sharded: bool
+                    ) -> Tensor:
+    """This rank's batch of the device-resident split (steps.py:248-281):
+    ``idx`` are its rows of the global plan. Under sharded residency
+    ``data`` is this rank's row block and the plan's rows must lie in it
+    (the grouped plan guarantees it): they are taken at ``idx - offset``,
+    and a row outside the block raises instead of being clamped."""
+    if not data_sharded:
+        return data[idx]
+    mesh = mesh_lib.active()
+    rows = data.shape[0]
+    local = idx - (mesh.data_rank * rows if mesh is not None else 0)
+    if bool(((local < 0) | (local >= rows)).any()):
+        raise ValueError(
+            "sharded residency: a batch row lies outside this rank's "
+            f"block of {rows} rows; the plan must be shard-aligned "
+            "(BatchLoader(shard_groups=DATA_SHARD_GROUPS))")
+    return data[local]
 
 
 def _recon_loss(recon: Tensor, complete: Tensor, *, recon_loss: str,
@@ -93,8 +166,9 @@ def make_ae_optimizer(params: dict, cfg: AETrainConfig, steps_per_epoch: int
 
 def _policy_cast(tree, dtype):
     """The compute-dtype copy of a params tree; the cast is differentiable,
-    so gradients come back to the f32 master tensors."""
-    return tree_map(lambda v: v.to(dtype), tree)
+    so gradients come back to the f32 master tensors. Column-sharded
+    leaves stay marked."""
+    return tree_map(lambda v: mesh_lib.keep_mark(v, v.to(dtype)), tree)
 
 
 def _policy_cast_ae_selective(tree, dtype):
@@ -127,7 +201,8 @@ def ae_train_step(params: dict, bn_state: dict, optimizer: torch.optim.Adam,
                   compute_dtype: Optional[torch.dtype] = None,
                   spec: pc_ops.PreprocSpec = pc_ops.DEFAULT_PREPROC,
                   recon_loss: str = "chamfer", bidirectional: bool = True,
-                  selective: bool = False, bn_stats: str = "centered"
+                  selective: bool = False, bn_stats: str = "centered",
+                  mesh: Optional[mesh_lib.Mesh] = None
                   ) -> Tuple[dict, Dict[str, Tensor]]:
     """One AE step (steps.py:124-166): hole cutting and augmentation ->
     forward with training BN -> Chamfer(recon, complete) averaged over the
@@ -135,7 +210,20 @@ def ae_train_step(params: dict, bn_state: dict, optimizer: torch.optim.Adam,
     is (B, N, 3). Updates ``params`` in place; returns (new BN state,
     {"loss": 0-d tensor}). ``compute_dtype=torch.bfloat16`` rounds the
     matmul operands and activations to bf16 (f32 master weights, BN
-    statistics and loss)."""
+    statistics and loss). Under ``mesh`` the batch is this rank's rows
+    and ``draws`` the global batch's."""
+    with mesh_lib.use(mesh):
+        return _ae_train_step(params, bn_state, optimizer, batch,
+                              _local(draws), scheduler=scheduler,
+                              augment=augment, compute_dtype=compute_dtype,
+                              spec=spec, recon_loss=recon_loss,
+                              bidirectional=bidirectional,
+                              selective=selective, bn_stats=bn_stats)
+
+
+def _ae_train_step(params, bn_state, optimizer, batch, draws, *, scheduler,
+                   augment, compute_dtype, spec, recon_loss, bidirectional,
+                   selective, bn_stats):
     complete, incomplete, mask = pc_ops.apply_training_batch(
         batch["complete_pc"], draws, spec=spec, do_augment=augment)
     p, x_in = params, incomplete
@@ -151,48 +239,58 @@ def ae_train_step(params: dict, bn_state: dict, optimizer: torch.optim.Adam,
     loss = _masked_mean(per, batch["pad"])
     _check_finite(loss, "AE loss")
     loss.backward()
+    _sync_grads(optimizer)
     optimizer.step()
     if scheduler is not None:
         scheduler.step()
-    return new_state, {"loss": loss.detach()}
+    return new_state, {"loss": _total(loss)}
 
 
 @torch.no_grad()
 def ae_eval_step(params: dict, bn_state: dict, batch: Dict[str, Tensor],
                  draws: Dict[str, Tensor], *,
                  spec: pc_ops.PreprocSpec = pc_ops.DEFAULT_PREPROC,
-                 recon_loss: str = "chamfer", bidirectional: bool = True
-                 ) -> Dict[str, Tensor]:
+                 recon_loss: str = "chamfer", bidirectional: bool = True,
+                 mesh: Optional[mesh_lib.Mesh] = None) -> Dict[str, Tensor]:
     """Validation (steps.py:169-184): holes from ``draws``, no
     augmentation, eval-mode BN."""
-    complete, incomplete, mask = pc_ops.apply_training_batch(
-        batch["complete_pc"], draws, spec=spec, do_augment=False)
-    (recon, _), _ = ae.autoencoder_apply(params, bn_state, incomplete, mask,
-                                         training=False)
-    per = _recon_loss(recon, complete, recon_loss=recon_loss,
-                      bidirectional=bidirectional)
-    return {"loss": _masked_mean(per, batch["pad"])}
+    with mesh_lib.use(mesh):
+        complete, incomplete, mask = pc_ops.apply_training_batch(
+            batch["complete_pc"], _local(draws), spec=spec,
+            do_augment=False)
+        (recon, _), _ = ae.autoencoder_apply(params, bn_state, incomplete,
+                                             mask, training=False)
+        per = _recon_loss(recon, complete, recon_loss=recon_loss,
+                          bidirectional=bidirectional)
+        return {"loss": _total(_masked_mean(per, batch["pad"]))}
 
 
 def ae_train_epoch(params: dict, bn_state: dict, optimizer, scheduler,
                    data: Tensor, order: Tensor, pads: Tensor,
                    generator: torch.Generator, *,
                    spec: pc_ops.PreprocSpec = pc_ops.DEFAULT_PREPROC,
+                   data_sharded: bool = False,
+                   mesh: Optional[mesh_lib.Mesh] = None,
                    **step_kw) -> Tuple[dict, Dict[str, Tensor]]:
     """One epoch over a device-resident train split (the Python-loop form
     of ae_train_epoch_resident, steps.py:282-330): ``data`` (D, N, 3) on
     the device, ``order`` (S, B) row indices and ``pads`` (S, B). Each step
     gathers its batch on the device and draws its transforms from
-    ``generator``. Returns (BN state, {"losses": (S,) tensor})."""
+    ``generator``. Returns (BN state, {"losses": (S,) tensor}). Under
+    ``mesh`` the plan is the global one and each rank takes its slots;
+    with ``data_sharded`` ``data`` is this rank's row block
+    (``mesh.row_sharding``)."""
     losses = []
     for idx, pad in zip(order, pads):
-        complete = data[idx]
-        draws = pc_ops.draw_training_batch(generator, complete.shape[0],
-                                           complete.shape[1], spec=spec)
+        # the global batch's draws; the step keeps this rank's rows
+        draws = pc_ops.draw_training_batch(generator, idx.shape[0],
+                                           data.shape[1], spec=spec)
+        with mesh_lib.use(mesh):
+            complete = _resident_batch(data, _local(idx), data_sharded)
         bn_state, m = ae_train_step(
             params, bn_state, optimizer,
-            {"complete_pc": complete, "pad": pad}, draws,
-            scheduler=scheduler, spec=spec, **step_kw)
+            {"complete_pc": complete, "pad": mesh_lib.local_rows(mesh, pad)},
+            draws, scheduler=scheduler, spec=spec, mesh=mesh, **step_kw)
         losses.append(m["loss"])
     return bn_state, {"losses": torch.stack(losses) if losses
                       else torch.zeros(0)}
@@ -206,16 +304,24 @@ def ae_train_epoch(params: dict, bn_state: dict, optimizer, scheduler,
 @torch.no_grad()
 def gfv_extract_step(params: dict, bn_state: dict, batch: Dict[str, Tensor],
                      draws: Dict[str, Tensor], *,
-                     spec: pc_ops.PreprocSpec = pc_ops.DEFAULT_PREPROC
+                     spec: pc_ops.PreprocSpec = pc_ops.DEFAULT_PREPROC,
+                     mesh: Optional[mesh_lib.Mesh] = None
                      ) -> Tuple[Tensor, Tensor]:
     """(clean GFV, noisy GFV) of one batch with the frozen eval-mode
     encoder; holes from ``draws`` (draw_training_batch with
-    augment=False), no augmentation (steps.py:339-352)."""
-    complete, incomplete, mask = pc_ops.apply_training_batch(
-        batch["complete_pc"], draws, spec=spec, do_augment=False)
-    enc_p, enc_s = params["encoder"], bn_state["encoder"]
-    return (ae.any_encoder_apply(enc_p, enc_s, complete)[0],
-            ae.any_encoder_apply(enc_p, enc_s, incomplete, mask)[0])
+    augment=False), no augmentation (steps.py:339-352). Under ``mesh``
+    each rank encodes its rows and the GFVs are gathered whole."""
+    with mesh_lib.use(mesh):
+        complete, incomplete, mask = pc_ops.apply_training_batch(
+            batch["complete_pc"], _local(draws), spec=spec,
+            do_augment=False)
+        enc_p, enc_s = params["encoder"], bn_state["encoder"]
+        mesh = mesh_lib.active()
+        return (collectives.gather_rows(
+                    ae.any_encoder_apply(enc_p, enc_s, complete)[0], mesh),
+                collectives.gather_rows(
+                    ae.any_encoder_apply(enc_p, enc_s, incomplete, mask)[0],
+                    mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -261,14 +367,24 @@ def draw_lgan_combined(generator: torch.Generator, bsz: int, z_dim: int,
 
 def lgan_d_step(lgan_params: dict, lgan_state: dict, d_opt: torch.optim.Adam,
                 real_gfv: Tensor, draws: Dict[str, object], *,
-                lambda_gp: float = 10.0) -> Tuple[dict, Dict[str, Tensor]]:
+                lambda_gp: float = 10.0,
+                mesh: Optional[mesh_lib.Mesh] = None
+                ) -> Tuple[dict, Dict[str, Tensor]]:
     """One discriminator step: WGAN loss + gradient penalty, Adam on D's
     parameters in place (steps.py:364-420). The fakes come from the
     training-mode generator without a gradient, so its BN statistics
     advance; D runs on the real, fake and interpolated batches, each call
     starting from the previous call's spectral-norm state, and the state
     kept is the fake call's. Returns (new state, {"d_loss", "wasserstein",
-    "gp"})."""
+    "gp"}). Under ``mesh`` ``real_gfv`` is this rank's rows and ``draws``
+    the global batch's; the generator's BN statistics cross the data group
+    under no_grad, so the penalty's double backward crosses nothing."""
+    with mesh_lib.use(mesh):
+        return _lgan_d_step(lgan_params, lgan_state, d_opt, real_gfv,
+                            _local(draws), lambda_gp)
+
+
+def _lgan_d_step(lgan_params, lgan_state, d_opt, real_gfv, draws, lambda_gp):
     with torch.no_grad():
         fake, gen_state = lg.generator_apply(
             lgan_params["generator"], lgan_state["generator"], draws["z"],
@@ -283,39 +399,47 @@ def lgan_d_step(lgan_params: dict, lgan_state: dict, d_opt: torch.optim.Adam,
         lambda x: lg.discriminator_apply(d_params, d_s2, x, training=True,
                                          keep_masks=draws["keep_gp"])[0],
         draws["alpha"], real_gfv, fake, lambda_gp=lambda_gp)
-    w_loss = losses_ops.discriminator_loss(real_scores, fake_scores)
+    w_loss = _share(losses_ops.discriminator_loss(real_scores, fake_scores))
+    gp = _share(gp)
     d_loss = w_loss + gp
     _check_finite(d_loss, "D loss")
     grad_step(d_opt, d_loss, d_params)
     return ({"generator": gen_state, "discriminator": d_s2},
-            {"d_loss": d_loss.detach(), "wasserstein": -w_loss.detach(),
-             "gp": gp.detach()})
+            {"d_loss": _total(d_loss), "wasserstein": -_total(w_loss),
+             "gp": _total(gp)})
 
 
 def lgan_generator_step(lgan_params: dict, lgan_state: dict,
-                        g_opt: torch.optim.Adam, draws: Dict[str, object]
+                        g_opt: torch.optim.Adam, draws: Dict[str, object],
+                        *, mesh: Optional[mesh_lib.Mesh] = None
                         ) -> Tuple[dict, Dict[str, Tensor]]:
     """One generator step against the training-mode discriminator, Adam on
     G's parameters in place; both states advance (steps.py:423-455)."""
+    with mesh_lib.use(mesh):
+        return _lgan_generator_step(lgan_params, lgan_state, g_opt,
+                                    _local(draws))
+
+
+def _lgan_generator_step(lgan_params, lgan_state, g_opt, draws):
     fake, g_state = lg.generator_apply(
         lgan_params["generator"], lgan_state["generator"], draws["z"],
         training=True)
     scores, d_state = lg.discriminator_apply(
         lgan_params["discriminator"], lgan_state["discriminator"], fake,
         training=True, keep_masks=draws["keep"])
-    g_loss = losses_ops.generator_loss(scores)
+    g_loss = _share(losses_ops.generator_loss(scores))
     _check_finite(g_loss, "G loss")
     grad_step(g_opt, g_loss, lgan_params["generator"])
     return ({"generator": g_state, "discriminator": d_state},
-            {"g_loss": g_loss.detach()})
+            {"g_loss": _total(g_loss)})
 
 
-def _d_steps(lgan_params, lgan_state, d_opt, real_gfvs, d_draws, lambda_gp
-             ) -> Tuple[dict, List[Tensor]]:
+def _d_steps(lgan_params, lgan_state, d_opt, real_gfvs, d_draws, lambda_gp,
+             mesh) -> Tuple[dict, List[Tensor]]:
     losses = []
     for real, draws in zip(real_gfvs, d_draws):
         lgan_state, m = lgan_d_step(lgan_params, lgan_state, d_opt, real,
-                                    draws, lambda_gp=lambda_gp)
+                                    draws, lambda_gp=lambda_gp, mesh=mesh)
         losses.append(m["d_loss"])
     return lgan_state, losses
 
@@ -323,15 +447,17 @@ def _d_steps(lgan_params, lgan_state, d_opt, real_gfvs, d_draws, lambda_gp
 def lgan_combined_step(lgan_params: dict, lgan_state: dict,
                        d_opt: torch.optim.Adam, g_opt: torch.optim.Adam,
                        real_gfvs: Tensor, draws: Dict[str, object], *,
-                       lambda_gp: float = 10.0
+                       lambda_gp: float = 10.0,
+                       mesh: Optional[mesh_lib.Mesh] = None
                        ) -> Tuple[dict, Dict[str, Tensor]]:
     """``real_gfvs`` (d_steps, B, latent): one D step per real batch, then
     one G step (steps.py:458-506). Returns (new state, {"d_loss" (their
-    mean), "g_loss"})."""
+    mean), "g_loss"}). Under ``mesh`` ``real_gfvs`` holds this rank's rows
+    along axis 1 and ``draws`` the global batch's."""
     lgan_state, d_losses = _d_steps(lgan_params, lgan_state, d_opt,
-                                    real_gfvs, draws["d"], lambda_gp)
+                                    real_gfvs, draws["d"], lambda_gp, mesh)
     lgan_state, gm = lgan_generator_step(lgan_params, lgan_state, g_opt,
-                                         draws["g"])
+                                         draws["g"], mesh=mesh)
     return lgan_state, {"d_loss": torch.stack(d_losses).mean(),
                         "g_loss": gm["g_loss"]}
 
@@ -339,12 +465,13 @@ def lgan_combined_step(lgan_params: dict, lgan_state: dict,
 def lgan_d_refresh(lgan_params: dict, lgan_state: dict,
                    d_opt: torch.optim.Adam, real_gfvs: Tensor,
                    d_draws: Sequence[Dict[str, object]], *,
-                   lambda_gp: float = 10.0
+                   lambda_gp: float = 10.0,
+                   mesh: Optional[mesh_lib.Mesh] = None
                    ) -> Tuple[dict, Dict[str, Tensor]]:
     """K D steps with the generator frozen, ``real_gfvs`` (K, B, latent)
     (steps.py:509-545). Returns (new state, {"d_losses" (K,)})."""
     lgan_state, losses = _d_steps(lgan_params, lgan_state, d_opt, real_gfvs,
-                                  d_draws, lambda_gp)
+                                  d_draws, lambda_gp, mesh)
     return lgan_state, {"d_losses": torch.stack(losses)}
 
 
@@ -381,7 +508,8 @@ def rl_step(model: dict, buffer: ReplayBuffer, ou_states: Tensor,
             cfg: rl.TD3Config, w_chamfer: float = 100.0, w_gfv: float = 10.0,
             w_discriminator: float = 0.01, start_training_size: int = 64,
             steps_per_episode: int = 1, updates_per_step: int = 1,
-            spec: pc_ops.PreprocSpec = pc_ops.DEFAULT_PREPROC
+            spec: pc_ops.PreprocSpec = pc_ops.DEFAULT_PREPROC,
+            mesh: Optional[mesh_lib.Mesh] = None
             ) -> Tuple[dict, ReplayBuffer, Tensor, Dict[str, Tensor]]:
     """One RL iteration over B parallel episodes of ``steps_per_episode``
     environment steps (steps.py:554-648): cut holes -> env_reset ->
@@ -390,38 +518,50 @@ def rl_step(model: dict, buffer: ReplayBuffer, ou_states: Tensor,
     max(start_training_size, batch_size). Updates the agent and the
     buffer in place; returns (model, buffer, new OU state, {"critic_loss",
     "actor_loss" (the last update's, 0 without updates), "reward" (the
-    mean episode reward over the rows ``batch["pad"]`` does not mark)})."""
-    with torch.no_grad():
+    mean episode reward over the rows ``batch["pad"]`` does not mark)}).
+    Under ``mesh`` the environments are sharded: ``batch`` is this rank's
+    rows, ``draws`` and ``ou_states`` the global batch's. Each step's
+    transitions are gathered in rank order, so every rank pushes the
+    single-device ring's rows, and the TD3 updates, drawn alike, run
+    replicated on every rank; the OU state comes back whole."""
+    with torch.no_grad(), mesh_lib.use(mesh):
         complete, incomplete, mask = pc_ops.apply_training_batch(
-            batch["complete_pc"], draws["holes"], spec=spec,
+            batch["complete_pc"], _local(draws["holes"]), spec=spec,
             do_augment=False)
+        ou_normal = mesh_lib.local_rows(mesh, draws["ou"], axis=1)
         env = net.env_reset(model, incomplete, complete, mask)
-        ou, transitions, rewards = ou_states, [], []
+        ou, transitions, rewards = _local(ou_states), [], []
         for i in range(steps_per_episode):
             action, ou = rl.select_action(model["agent"], env.state, cfg,
                                           ou_state=ou, add_noise=True,
-                                          normal=draws["ou"][i])
+                                          normal=ou_normal[i])
             env_next, r, _, _ = net.env_step(
                 model, env, action, w_chamfer=w_chamfer, w_gfv=w_gfv,
                 w_discriminator=w_discriminator)
             done = torch.full_like(r, float(i == steps_per_episode - 1))
-            transitions.append((env.state, action, r[:, None],
-                                env_next.state, done[:, None]))
+            transitions.append(tuple(
+                collectives.gather_rows(f, mesh)
+                for f in (env.state, action, r[:, None], env_next.state,
+                          done[:, None])))
             rewards.append(r)
             env = env_next
         _check_finite(torch.stack(rewards), "RL reward")
         buffer.add_batch(rl.TransitionBatch(
             *(torch.cat(f) for f in zip(*transitions))))
+        ou = collectives.gather_rows(ou, mesh)
+        reward = _total(_masked_mean(torch.stack(rewards).sum(0),
+                                     batch["pad"]))
     zero = torch.zeros((), device=ou.device)
     metrics = {"critic_loss": zero, "actor_loss": zero}
-    if buffer.size >= max(start_training_size, cfg.batch_size):
-        for u in range(updates_per_step):
+    with mesh_lib.use(None):  # the TD3 update is replicated
+        for u in range(updates_per_step
+                       if buffer.size >= max(start_training_size,
+                                             cfg.batch_size) else 0):
             _, metrics = rl.agent_update(
                 model["agent"], buffer.sample(draws["sample"][u]),
                 draws["noise"][u], cfg)
             _check_finite(metrics["critic_loss"], "critic loss")
-    metrics = dict(metrics, reward=_masked_mean(torch.stack(rewards).sum(0),
-                                                batch["pad"]))
+    metrics = dict(metrics, reward=reward)
     return model, buffer, ou, metrics
 
 
@@ -430,20 +570,24 @@ def rl_eval_reward(model: dict, batch: Dict[str, Tensor],
                    draws: Dict[str, Tensor], *, cfg: rl.TD3Config,
                    w_chamfer: float = 100.0, w_gfv: float = 10.0,
                    w_discriminator: float = 0.01,
-                   spec: pc_ops.PreprocSpec = pc_ops.DEFAULT_PREPROC
+                   spec: pc_ops.PreprocSpec = pc_ops.DEFAULT_PREPROC,
+                   mesh: Optional[mesh_lib.Mesh] = None
                    ) -> Dict[str, Tensor]:
     """Greedy single-step reward and Chamfer distance of the completions on
     a fixed batch with fixed holes ``draws`` (steps.py:651-685)."""
-    complete, incomplete, mask = pc_ops.apply_training_batch(
-        batch["complete_pc"], draws, spec=spec, do_augment=False)
-    env0 = net.env_reset(model, incomplete, complete, mask)
-    action, _ = rl.select_action(model["agent"], env0.state, cfg)
-    _, rewards, _, info = net.env_step(
-        model, env0, action, w_chamfer=w_chamfer, w_gfv=w_gfv,
-        w_discriminator=w_discriminator)
-    per_cd = chamfer.chamfer_distance(info["completed_pc"], env0.target_pc)
-    return {"reward": _masked_mean(rewards, batch["pad"]),
-            "chamfer": _masked_mean(per_cd, batch["pad"])}
+    with mesh_lib.use(mesh):
+        complete, incomplete, mask = pc_ops.apply_training_batch(
+            batch["complete_pc"], _local(draws), spec=spec,
+            do_augment=False)
+        env0 = net.env_reset(model, incomplete, complete, mask)
+        action, _ = rl.select_action(model["agent"], env0.state, cfg)
+        _, rewards, _, info = net.env_step(
+            model, env0, action, w_chamfer=w_chamfer, w_gfv=w_gfv,
+            w_discriminator=w_discriminator)
+        per_cd = chamfer.chamfer_distance(info["completed_pc"],
+                                          env0.target_pc)
+        return {"reward": _total(_masked_mean(rewards, batch["pad"])),
+                "chamfer": _total(_masked_mean(per_cd, batch["pad"]))}
 
 
 # ---------------------------------------------------------------------------
@@ -476,7 +620,8 @@ def joint_train_step(model: dict, optimizer: torch.optim.Optimizer,
                      spec: pc_ops.PreprocSpec = pc_ops.DEFAULT_PREPROC,
                      bidirectional: bool = True, w_ae_recon: float = 0.0,
                      selective: bool = False, bn_stats: str = "centered",
-                     freeze_generator: bool = False
+                     freeze_generator: bool = False,
+                     mesh: Optional[mesh_lib.Mesh] = None
                      ) -> Tuple[dict, Dict[str, Tensor]]:
     """One joint fine-tune step (steps.py:695-809): holes with
     augmentation -> encoder in training mode -> z from the actor in eval
@@ -488,13 +633,28 @@ def joint_train_step(model: dict, optimizer: torch.optim.Optimizer,
     complete) joins the loss. ``optimizer`` holds the trainable leaves
     (``joint_trainable``) and updates them in place. Returns (the model
     with the new BN states of the encoder, decoder and generator, {"loss",
-    "chamfer", "gfv"}); a frozen G keeps its parameters and state."""
+    "chamfer", "gfv"}); a frozen G keeps its parameters and state. Under
+    ``mesh`` the batch is this rank's rows and ``draws`` the global
+    batch's; the (2B, .) decoder pass concatenates two sharded batches
+    (``mesh.segments``)."""
+    with mesh_lib.use(mesh):
+        return _joint_train_step(
+            model, optimizer, batch, _local(draws), cfg=cfg,
+            compute_dtype=compute_dtype, spec=spec,
+            bidirectional=bidirectional, w_ae_recon=w_ae_recon,
+            selective=selective, bn_stats=bn_stats,
+            freeze_generator=freeze_generator)
+
+
+def _joint_train_step(model, optimizer, batch, draws, *, cfg, compute_dtype,
+                      spec, bidirectional, w_ae_recon, selective, bn_stats,
+                      freeze_generator):
     complete, incomplete, mask = pc_ops.apply_training_batch(
         batch["complete_pc"], draws, spec=spec, do_augment=True)
     ae_p = model["ae"]["params"]
     gen_p = model["lgan"]["params"]["generator"]
     if freeze_generator:
-        gen_p = tree_map(lambda v: v.detach(), gen_p)
+        gen_p = tree_map(lambda v: mesh_lib.keep_mark(v, v.detach()), gen_p)
     x_in = incomplete
     if compute_dtype is not None:
         ae_p = (_policy_cast_ae_selective(ae_p, compute_dtype) if selective
@@ -514,10 +674,11 @@ def joint_train_step(model: dict, optimizer: torch.optim.Optimizer,
         gen_p, gen_s, z, training=not freeze_generator, bn_stats=bn_stats)
     if w_ae_recon > 0.0:
         bsz = clean_gfv.shape[0]
-        both, dec_s = ae.any_decoder_apply(
-            ae_p["decoder"], ae_s["decoder"],
-            torch.cat([clean_gfv, noisy_gfv], dim=0), training=True,
-            bn_stats=bn_stats)
+        with mesh_lib.segments(2):
+            both, dec_s = ae.any_decoder_apply(
+                ae_p["decoder"], ae_s["decoder"],
+                torch.cat([clean_gfv, noisy_gfv], dim=0), training=True,
+                bn_stats=bn_stats)
         completed, ae_recon = both[:bsz], both[bsz:]
     else:
         completed, dec_s = ae.any_decoder_apply(
@@ -525,13 +686,14 @@ def joint_train_step(model: dict, optimizer: torch.optim.Optimizer,
             bn_stats=bn_stats)
     ch = _masked_mean(chamfer.chamfer_distance(
         completed, complete, bidirectional=bidirectional), batch["pad"])
-    gl = losses_ops.gfv_loss(clean_gfv, noisy_gfv)
+    gl = _share(losses_ops.gfv_loss(clean_gfv, noisy_gfv))
     loss = ch + 0.1 * gl
     if w_ae_recon > 0.0:
         loss = loss + w_ae_recon * _masked_mean(chamfer.chamfer_distance(
             ae_recon, complete, bidirectional=bidirectional), batch["pad"])
     _check_finite(loss, "joint loss")
     loss.backward()
+    _sync_grads(optimizer)
     optimizer.step()
     lgan = model["lgan"]
     new_model = dict(model)
@@ -541,14 +703,16 @@ def joint_train_step(model: dict, optimizer: torch.optim.Optimizer,
         "params": lgan["params"],
         "state": {"generator": gen_s if freeze_generator else new_gen_s,
                   "discriminator": lgan["state"]["discriminator"]}}
-    return new_model, {"loss": loss.detach(), "chamfer": ch.detach(),
-                       "gfv": gl.detach()}
+    return new_model, {"loss": _total(loss), "chamfer": _total(ch),
+                       "gfv": _total(gl)}
 
 
 def joint_train_epoch(model: dict, optimizer: torch.optim.Optimizer,
                       data: Tensor, order: Tensor, pads: Tensor,
                       generator: torch.Generator, *,
                       spec: pc_ops.PreprocSpec = pc_ops.DEFAULT_PREPROC,
+                      data_sharded: bool = False,
+                      mesh: Optional[mesh_lib.Mesh] = None,
                       **step_kw) -> Tuple[dict, Dict[str, Tensor]]:
     """One joint epoch over a device-resident train split (the loop form
     of joint_train_epoch_resident, steps.py:812-857), as ae_train_epoch:
@@ -556,12 +720,15 @@ def joint_train_epoch(model: dict, optimizer: torch.optim.Optimizer,
     from ``generator``. Returns (model, {"losses": (S,) tensor})."""
     losses = []
     for idx, pad in zip(order, pads):
-        complete = data[idx]
-        draws = pc_ops.draw_training_batch(generator, complete.shape[0],
-                                           complete.shape[1], spec=spec)
+        # the global batch's draws; the step keeps this rank's rows
+        draws = pc_ops.draw_training_batch(generator, idx.shape[0],
+                                           data.shape[1], spec=spec)
+        with mesh_lib.use(mesh):
+            complete = _resident_batch(data, _local(idx), data_sharded)
         model, m = joint_train_step(
-            model, optimizer, {"complete_pc": complete, "pad": pad}, draws,
-            spec=spec, **step_kw)
+            model, optimizer,
+            {"complete_pc": complete, "pad": mesh_lib.local_rows(mesh, pad)},
+            draws, spec=spec, mesh=mesh, **step_kw)
         losses.append(m["loss"])
     return model, {"losses": torch.stack(losses) if losses
                    else torch.zeros(0)}
@@ -573,14 +740,18 @@ def joint_eval_step(model: dict, batch: Dict[str, Tensor],
                     spec: pc_ops.PreprocSpec = pc_ops.DEFAULT_PREPROC,
                     bidirectional: bool = True,
                     gate_mode: str = "discriminator",
-                    gate_bias: float = 0.0) -> Dict[str, Tensor]:
+                    gate_bias: float = 0.0,
+                    mesh: Optional[mesh_lib.Mesh] = None
+                    ) -> Dict[str, Tensor]:
     """Validation through ``complete`` with the hybrid gate, holes from
     ``draws``, no augmentation: the masked mean Chamfer distance of the
     hybrid output (steps.py:860-879)."""
-    complete, incomplete, mask = pc_ops.apply_training_batch(
-        batch["complete_pc"], draws, spec=spec, do_augment=False)
-    out = net.complete(model, incomplete, mask, cfg=cfg, gate_mode=gate_mode,
-                       gate_bias=gate_bias)
-    per = chamfer.chamfer_distance(out["hybrid_output"], complete,
-                                   bidirectional=bidirectional)
-    return {"loss": _masked_mean(per, batch["pad"])}
+    with mesh_lib.use(mesh):
+        complete, incomplete, mask = pc_ops.apply_training_batch(
+            batch["complete_pc"], _local(draws), spec=spec,
+            do_augment=False)
+        out = net.complete(model, incomplete, mask, cfg=cfg,
+                           gate_mode=gate_mode, gate_bias=gate_bias)
+        per = chamfer.chamfer_distance(out["hybrid_output"], complete,
+                                       bidirectional=bidirectional)
+        return {"loss": _total(_masked_mean(per, batch["pad"]))}

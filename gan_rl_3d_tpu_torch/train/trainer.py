@@ -38,6 +38,17 @@ data-sampling draws to that iteration. As in the JAX package, nothing
 else is replayed: the loader's permutations and the device generator
 start from the seed, so a resumed run follows the JAX package's resumed
 run, not an uninterrupted one (trainer.py:814-831).
+
+Under ``torchrun`` the trainer runs on the mesh of every rank on "data"
+(``parallel.mesh.make_mesh()``, trainer.py:72-82): each rank trains on its
+rows of every global batch, draws the global batch's random numbers from
+the same seeded generator, and so follows the single-device trajectory.
+The resident split is replicated, or row-sharded under
+``training.data_residency: sharded`` when the sizes align (else the
+replication is printed). Rank 0 alone writes checkpoints, their siblings,
+the gate sidecar, the GFV cache and the metrics log, and prints; every
+save ends in a barrier. Without a process group the mesh is 1x1 and
+nothing communicates.
 """
 
 from __future__ import annotations
@@ -57,13 +68,14 @@ from gan_rl_3d_tpu_torch.convert import (adam_to_optax, agent_from_numpy,
                                          load_chain, model_from_numpy,
                                          model_to_numpy, optax_layout,
                                          tree_from_numpy)
-from gan_rl_3d_tpu_torch.data.dataset import (DATA_SHARD_GROUPS,
-                                              BatchLoader, ShapeNetDataset,
+from gan_rl_3d_tpu_torch.data.dataset import (BatchLoader, ShapeNetDataset,
                                               setup_dataset)
 from gan_rl_3d_tpu_torch.device import resolve_device
+from gan_rl_3d_tpu_torch import nn
 from gan_rl_3d_tpu_torch.models import rl_agent as rl
 from gan_rl_3d_tpu_torch.models import rl_gan_net as net
 from gan_rl_3d_tpu_torch.ops import pointcloud as pc_ops
+from gan_rl_3d_tpu_torch.parallel import mesh as mesh_lib
 from gan_rl_3d_tpu_torch.train import gate as gate_lib
 from gan_rl_3d_tpu_torch.train import replay_buffer as rb
 from gan_rl_3d_tpu_torch.train import steps
@@ -77,6 +89,12 @@ EVAL_HOLES_SEED = 777  # the greedy eval's fixed holes (trainer.py:460)
 # PRNGKey(0), (1), (2) folded with the batch index (trainer.py:271,573,674)
 AE_VAL_HOLES, JOINT_VAL_HOLES, GATE_HOLES = 0, 1, 2
 HOLE_STREAMS = 3
+
+
+def _print(*args, **kwargs) -> None:
+    """print on the writing rank (rank 0) alone."""
+    if mesh_lib.is_writer():
+        print(*args, **kwargs)
 
 
 def fixed_holes_seed(stream: int, i: int) -> int:
@@ -93,6 +111,12 @@ class RLGANNetTrainer:
                        else config)
         cfg = self.config
         self.device = resolve_device(device)
+        # every rank on "data" (trainer.py:72-82); 1x1 without a group
+        self.mesh = mesh_lib.make_mesh(device=self.device)
+        # joint.w_ae_recon > 0 decodes two batches in one pass
+        nn.validate_bn_stats_mesh(
+            cfg.training.bn_stats, self.mesh.n_data,
+            segments=2 if cfg.training.joint.w_ae_recon > 0.0 else 1)
         self.checkpoint_dir = Path(cfg.training.checkpoint_dir)
         self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
         self.logger = MetricsLogger(
@@ -114,7 +138,8 @@ class RLGANNetTrainer:
         # every device; the transforms' draws come from a device generator
         model = net.init_model(torch.Generator().manual_seed(cfg.training.seed),
                                cfg, self.device)
-        self.model = {**model, "ae": self._on_device(**model["ae"])}
+        self.model = mesh_lib.shard_model_for_mesh(
+            self.mesh, {**model, "ae": self._on_device(**model["ae"])})
         self.generator = torch.Generator(self.device).manual_seed(
             cfg.training.seed + 1)
         self._save_freq = max(cfg.logging.save_model_frequency, 1)
@@ -149,18 +174,26 @@ class RLGANNetTrainer:
     # ------------------------------------------------------------------
 
     def _setup_data(self):
+        # rank 0 writes a missing dataset and the split index files first;
+        # the other ranks wait at the barrier, then read them
+        if not mesh_lib.is_writer():
+            mesh_lib.barrier()
+        self._make_loaders()
+        if mesh_lib.is_writer():
+            mesh_lib.barrier()
+
+    def _make_loaders(self):
         cfg = self.config
         data_dir = Path(cfg.data.data_dir)
         if not data_dir.exists():
-            print(f"Dataset not found at {data_dir}; creating synthetic data")
+            _print(f"Dataset not found at {data_dir}; creating synthetic data")
             setup_dataset(str(data_dir), synthetic=True)
         fractions = None
         if not (data_dir / "train").exists():
             fractions = (cfg.data.train_split, cfg.data.val_split,
                          cfg.data.test_split)
-        # the shard-aligned plan of a row-sharded split
-        # (trainer.py:117-131); one device keeps the whole split resident
-        groups = (DATA_SHARD_GROUPS
+        # the shard-aligned plan of a row-sharded split (trainer.py:117-131)
+        groups = (mesh_lib.DATA_SHARD_GROUPS
                   if cfg.training.data_residency == "sharded" else 1)
 
         def make_loader(split, shuffle):
@@ -180,15 +213,38 @@ class RLGANNetTrainer:
         self.test_loader = make_loader("test", False)
         if len(self.val_loader.dataset) == 0:
             self.val_loader = self.test_loader
-        print(f"Training samples: {len(self.train_loader.dataset)}")
-        print(f"Validation samples: {len(self.val_loader.dataset)}")
-        print(f"Test samples: {len(self.test_loader.dataset)}")
+        _print(f"Training samples: {len(self.train_loader.dataset)}")
+        _print(f"Validation samples: {len(self.val_loader.dataset)}")
+        _print(f"Test samples: {len(self.test_loader.dataset)}")
 
-    def _resident_train_data(self) -> torch.Tensor:
-        """The train split on the device for the whole phase; per epoch
-        only the batch plan, a few KB, crosses from the host."""
-        return torch.from_numpy(self.train_loader.dataset.as_array()).to(
-            self.device)
+    def _put(self, batch: dict) -> dict:
+        """This rank's rows of a host batch, on the device
+        (trainer.py:145-146)."""
+        return mesh_lib.shard_batch(self.mesh, batch)
+
+    def _resident_train_data(self, replicate: bool = False
+                             ) -> Tuple[torch.Tensor, bool]:
+        """The train split on the device for the whole phase, as (data,
+        data_sharded); per epoch only the batch plan, a few KB, crosses
+        from the host. Replicated, or this rank's row block under
+        training.data_residency "sharded" when the shard-aligned plan
+        holds (trainer.py:148-170); misaligned sizes replicate, and say
+        so."""
+        data = self.train_loader.dataset.as_array()
+        n, bs = len(data), self.train_loader.batch_size
+        n_data = self.mesh.n_data
+        groups = self.train_loader.shard_groups
+        sharded = self.config.training.data_residency == "sharded"
+        aligned = (sharded and groups > 1 and n % groups == 0
+                   and bs % groups == 0 and groups % n_data == 0)
+        if aligned and not replicate:
+            # one rank's block is the whole split: it is taken as before
+            return mesh_lib.row_sharding(self.mesh, data), n_data > 1
+        if sharded and not replicate:
+            _print(f"data_residency=sharded: sizes (n={n}, B={bs}, "
+                   f"mesh data={n_data}) not aligned to "
+                   f"{mesh_lib.DATA_SHARD_GROUPS} groups; replicating")
+        return torch.from_numpy(data).to(self.device), False
 
     # ------------------------------------------------------------------
     # phase 1: autoencoder
@@ -197,7 +253,7 @@ class RLGANNetTrainer:
     def train_autoencoder(self, num_epochs: Optional[int] = None) -> float:
         cfg = self.config.training.autoencoder
         num_epochs = num_epochs or cfg.epochs
-        print(f"\n=== PHASE 1: autoencoder ({num_epochs} epochs) ===")
+        _print(f"\n=== PHASE 1: autoencoder ({num_epochs} epochs) ===")
         params = self.model["ae"]["params"]
         bn_state = self.model["ae"]["state"]
         optimizer, scheduler = steps.make_ae_optimizer(
@@ -212,7 +268,7 @@ class RLGANNetTrainer:
         eval_freq = max(self.config.evaluation.eval_frequency, 1)
         log_freq = max(self.config.logging.log_frequency, 1)
         global_step = start_epoch * len(self.train_loader)
-        data = self._resident_train_data()
+        data, data_sharded = self._resident_train_data()
         for epoch in range(start_epoch, num_epochs):
             t0 = time.time()
             order, pads = self.train_loader.epoch_indices()
@@ -220,6 +276,7 @@ class RLGANNetTrainer:
                 params, bn_state, optimizer, scheduler, data,
                 torch.from_numpy(order).long().to(self.device),
                 torch.from_numpy(pads).to(self.device), self.generator,
+                data_sharded=data_sharded, mesh=self.mesh,
                 spec=self._ae_train_spec(epoch, num_epochs),
                 compute_dtype=self.compute_dtype,
                 selective=self.precision_selective, bn_stats=self.bn_stats,
@@ -242,7 +299,7 @@ class RLGANNetTrainer:
                 self.logger.log_scalar("AE/Val_Loss", val_loss, epoch)
             dt = time.time() - t0
             val_txt = f"val {val_loss:.6f}" if val_loss is not None else ""
-            print(f"AE epoch {epoch + 1}/{num_epochs} "
+            _print(f"AE epoch {epoch + 1}/{num_epochs} "
                   f"train {train_loss:.6f} {val_txt} ({dt:.1f}s)")
             if val_loss is not None and val_loss < best_val:
                 best_val = val_loss
@@ -255,7 +312,7 @@ class RLGANNetTrainer:
                                                     scheduler),
                         "best_val": np.float32(best_val),
                         "epoch": np.int32(epoch)})
-        print(f"AE done; best val loss {best_val:.6f}")
+        _print(f"AE done; best val loss {best_val:.6f}")
         return best_val
 
     def _ae_train_spec(self, epoch: int, num_epochs: int
@@ -285,15 +342,12 @@ class RLGANNetTrainer:
         (comparable epochs)."""
         losses = []
         for i, batch in enumerate(self.val_loader):
-            pc = torch.from_numpy(batch["complete_pc"]).to(self.device)
-            draws = self._fixed_holes(AE_VAL_HOLES, i, pc.shape[0],
-                                      pc.shape[1])
+            bsz, n = batch["complete_pc"].shape[:2]
             m = steps.ae_eval_step(
-                params, bn_state,
-                {"complete_pc": pc,
-                 "pad": torch.from_numpy(batch["pad"]).to(self.device)},
-                draws, spec=self.preproc, recon_loss=self.recon_loss,
-                bidirectional=self.bidirectional)
+                params, bn_state, self._put(batch),
+                self._fixed_holes(AE_VAL_HOLES, i, bsz, n), spec=self.preproc,
+                recon_loss=self.recon_loss, bidirectional=self.bidirectional,
+                mesh=self.mesh)
             losses.append(m["loss"])
         return float(torch.stack(losses).mean())
 
@@ -305,27 +359,29 @@ class RLGANNetTrainer:
         """(clean, noisy) GFVs of the train split with the frozen encoder,
         padded rows left out, saved to ``<checkpoint_dir>/gfv/
         gfvs_train.npz`` (trainer.py:285-303)."""
-        print("\n=== PHASE 2: GFV extraction ===")
+        _print("\n=== PHASE 2: GFV extraction ===")
         ae_m = self.model["ae"]
         gen = torch.Generator(self.device).manual_seed(
             self.config.training.seed + 1)
         clean_all, noisy_all = [], []
         for batch in self.train_loader:
-            pc = torch.from_numpy(batch["complete_pc"]).to(self.device)
-            draws = pc_ops.draw_training_batch(gen, pc.shape[0], pc.shape[1],
-                                               spec=self.preproc,
+            bsz, n = batch["complete_pc"].shape[:2]
+            draws = pc_ops.draw_training_batch(gen, bsz, n, spec=self.preproc,
                                                augment=False)
             clean, noisy = steps.gfv_extract_step(
-                ae_m["params"], ae_m["state"], {"complete_pc": pc}, draws,
-                spec=self.preproc)
+                ae_m["params"], ae_m["state"],
+                self._put({"complete_pc": batch["complete_pc"]}), draws,
+                spec=self.preproc, mesh=self.mesh)
             keep = batch["pad"] == 0
             clean_all.append(clean.cpu().numpy()[keep])
             noisy_all.append(noisy.cpu().numpy()[keep])
         self.gfvs = {"clean": np.concatenate(clean_all),
                      "noisy": np.concatenate(noisy_all)}
-        self._gfv_path.parent.mkdir(parents=True, exist_ok=True)
-        np.savez(self._gfv_path, **self.gfvs)
-        print(f"extracted {len(self.gfvs['clean'])} GFV pairs "
+        if mesh_lib.is_writer():
+            self._gfv_path.parent.mkdir(parents=True, exist_ok=True)
+            np.savez(self._gfv_path, **self.gfvs)
+        mesh_lib.barrier()
+        _print(f"extracted {len(self.gfvs['clean'])} GFV pairs "
               f"-> {self._gfv_path}")
         return self.gfvs
 
@@ -355,7 +411,7 @@ class RLGANNetTrainer:
         picks it (trainer.py:325-406)."""
         cfg = self.config.training.lgan
         num_epochs = num_epochs or cfg.epochs
-        print(f"\n=== PHASE 3: latent GAN ({num_epochs} epochs, "
+        _print(f"\n=== PHASE 3: latent GAN ({num_epochs} epochs, "
               f"d_steps={cfg.d_steps}) ===")
         gfvs = torch.from_numpy(self._load_gfvs()["clean"]).to(self.device)
         bs = cfg.batch_size or self.config.training.batch_size
@@ -388,13 +444,15 @@ class RLGANNetTrainer:
                     idx = order[si * bs:(si + 1) * bs][None, :]
                 else:
                     idx = rng.randint(0, n, size=(d_steps, bs))
-                real = gfvs[torch.from_numpy(idx).to(self.device)]
+                # the real batch sharded along axis 1 (trainer.py:363-368)
+                real = gfvs[torch.from_numpy(mesh_lib.local_rows(
+                    self.mesh, idx, axis=1)).to(self.device)]
                 draws = steps.draw_lgan_combined(
-                    self.generator, real.shape[1], m.z_dim,
+                    self.generator, idx.shape[1], m.z_dim,
                     m.discriminator_dims, d_steps)
                 state, sm = steps.lgan_combined_step(
                     params, state, d_opt, g_opt, real, draws,
-                    lambda_gp=cfg.lambda_gp)
+                    lambda_gp=cfg.lambda_gp, mesh=self.mesh)
                 g_losses.append(sm["g_loss"])
                 d_losses.append(sm["d_loss"])
             g_loss = float(torch.stack(g_losses).mean())
@@ -402,7 +460,7 @@ class RLGANNetTrainer:
             self.lgan_losses.append((g_loss, d_loss))
             self.logger.log_scalar("GAN/Generator_Loss", g_loss, epoch)
             self.logger.log_scalar("GAN/Discriminator_Loss", d_loss, epoch)
-            print(f"GAN epoch {epoch + 1}/{num_epochs} G {g_loss:.6f} "
+            _print(f"GAN epoch {epoch + 1}/{num_epochs} G {g_loss:.6f} "
                   f"D {d_loss:.6f} ({time.time() - t0:.1f}s)")
             self.model["lgan"] = {"params": params, "state": state}
             if g_loss < best_g:
@@ -418,7 +476,7 @@ class RLGANNetTrainer:
                         "best_g": np.float32(best_g),
                         "epoch": np.int32(epoch)})
         self.save_checkpoint("lgan_final", num_epochs - 1, "lgan")
-        print(f"LGAN done; best G loss {best_g:.6f}")
+        _print(f"LGAN done; best G loss {best_g:.6f}")
         return best_g
 
     # ------------------------------------------------------------------
@@ -428,16 +486,20 @@ class RLGANNetTrainer:
     def _eval_batch(self) -> Tuple[dict, dict]:
         """The greedy eval's fixed batch: up to 64 val clouds spread evenly
         over the split (it is sorted by path, so the first 64 would be one
-        category), and its fixed holes (trainer.py:436-460)."""
+        category), wrap-padded to a multiple of the data axis (the padded
+        rows carry pad 1), and its fixed holes (trainer.py:436-460). The
+        batch is this rank's rows, the holes the global batch's."""
         val = self.val_loader.dataset.as_array()
         n_real = int(min(64, len(val)))
         spread = np.linspace(0, len(val) - 1, n_real).astype(np.int64)
-        pc = torch.from_numpy(val[spread]).to(self.device)
+        n_data = self.mesh.n_data
+        n_eval = -(-n_real // n_data) * n_data
+        idx = spread[np.arange(n_eval) % n_real]
+        pad = (np.arange(n_eval) >= n_real).astype(np.float32)
         draws = pc_ops.draw_training_batch(
             torch.Generator(self.device).manual_seed(EVAL_HOLES_SEED),
-            n_real, pc.shape[1], spec=self.preproc, augment=False)
-        return ({"complete_pc": pc,
-                 "pad": torch.zeros(n_real, device=self.device)}, draws)
+            n_eval, val.shape[1], spec=self.preproc, augment=False)
+        return self._put({"complete_pc": val[idx], "pad": pad}), draws
 
     def train_rl_agent(self, num_episodes: Optional[int] = None) -> float:
         """``num_episodes // envs`` iterations of ``steps.rl_step`` over
@@ -452,13 +514,13 @@ class RLGANNetTrainer:
         n_steps = min(max(cfg.steps_per_episode, 1),
                       cfg.max_steps_per_episode)
         updates = max(cfg.updates_per_step, 1)
-        print(f"\n=== PHASE 4: RL agent ({num_episodes} episodes = "
+        _print(f"\n=== PHASE 4: RL agent ({num_episodes} episodes = "
               f"{iters} x {envs} parallel envs) ===")
         buffer = rb.ReplayBuffer(self.config.model.rl_agent.buffer_size,
                                  self.td3.state_dim, self.td3.action_dim,
                                  self.device)
         ou = rl.ou_init(self.td3, (envs,), self.device)
-        data = self._resident_train_data()
+        data, _ = self._resident_train_data(replicate=True)
         rng = np.random.RandomState(self.config.training.seed)
         loss_cfg = self.config.loss
         weights = dict(w_chamfer=loss_cfg.w_chamfer, w_gfv=loss_cfg.w_gfv,
@@ -481,19 +543,20 @@ class RLGANNetTrainer:
         def log_eval(episode):
             m = steps.rl_eval_reward(self.model, eval_batch, eval_draws,
                                      cfg=self.td3, spec=self.preproc,
-                                     **weights)
+                                     mesh=self.mesh, **weights)
             r, cd = float(m["reward"]), float(m["chamfer"])
             self.rl_evals.append((episode, r, cd))
             self.logger.log_scalar("RL/Eval_Reward", r, episode)
             self.logger.log_scalar("RL/Eval_Chamfer", cd, episode)
-            print(f"  eval reward (greedy, fixed batch) @ep {episode}: "
+            _print(f"  eval reward (greedy, fixed batch) @ep {episode}: "
                   f"{r:.4f}  chamfer {cd:.4f}")
 
         log_eval(start_it * envs)
         for it in range(start_it, iters):
-            idx = torch.from_numpy(rng.randint(0, len(data), size=envs))
+            idx = torch.from_numpy(mesh_lib.local_rows(
+                self.mesh, rng.randint(0, len(data), size=envs)))
             batch = {"complete_pc": data[idx.to(self.device)],
-                     "pad": torch.zeros(envs, device=self.device)}
+                     "pad": torch.zeros(len(idx), device=self.device)}
             draws = steps.draw_rl_step(
                 self.generator, envs, data.shape[1], cfg=self.td3,
                 buffer_size=min(buffer.size + envs * n_steps,
@@ -504,7 +567,7 @@ class RLGANNetTrainer:
                 self.model, buffer, ou, batch, draws, cfg=self.td3,
                 start_training_size=cfg.start_training_steps,
                 steps_per_episode=n_steps, updates_per_step=updates,
-                spec=self.preproc, **weights)
+                spec=self.preproc, mesh=self.mesh, **weights)
             rewards.append(float(m["reward"]))
             self.rl_history.append({"reward": rewards[-1],
                                     "critic_loss": m["critic_loss"],
@@ -519,7 +582,7 @@ class RLGANNetTrainer:
                                    ("Critic_Loss", m["critic_loss"]),
                                    ("Actor_Loss", m["actor_loss"])):
                     self.logger.log_scalar(f"RL/{tag}", float(value), episode)
-                print(f"RL iter {it + 1}/{iters} (episode {episode}) "
+                _print(f"RL iter {it + 1}/{iters} (episode {episode}) "
                       f"reward {rewards[-1]:.4f} avg {avg:.4f} critic "
                       f"{float(m['critic_loss']):.4f} actor "
                       f"{float(m['actor_loss']):.4f}")
@@ -534,7 +597,7 @@ class RLGANNetTrainer:
                                  "best_avg": np.float32(best_avg),
                                  "it": np.int32(it)})
         self.save_checkpoint("rl_agent_final", num_episodes, "rl_agent")
-        print(f"RL done; best avg reward {best_avg:.4f}")
+        _print(f"RL done; best avg reward {best_avg:.4f}")
         return best_avg
 
     # ------------------------------------------------------------------
@@ -551,9 +614,9 @@ class RLGANNetTrainer:
         ``gan_path``."""
         cfg = self.config.training.joint
         num_epochs = num_epochs or cfg.epochs
-        print(f"\n=== PHASE 5: joint fine-tune ({num_epochs} epochs) ===")
+        _print(f"\n=== PHASE 5: joint fine-tune ({num_epochs} epochs) ===")
         if cfg.freeze_generator:
-            print("joint: generator FROZEN (phase-3 G preserved; "
+            _print("joint: generator FROZEN (phase-3 G preserved; "
                   "joint.freeze_generator)")
         if cfg.preserve_gan_path and "gan_path" not in self.model:
             # copies: Adam updates the live tensors in place
@@ -567,7 +630,7 @@ class RLGANNetTrainer:
                     "params": self.model["ae"]["params"]["decoder"],
                     "state": self.model["ae"]["state"]["decoder"]}),
             }
-            print("joint: serving GAN branch SNAPSHOTTED (pre-joint G + "
+            _print("joint: serving GAN branch SNAPSHOTTED (pre-joint G + "
                   "decoder; joint.preserve_gan_path)")
         trainable = steps.joint_trainable(self.model, cfg.freeze_generator)
         for v in tree_leaves(trainable):
@@ -585,7 +648,7 @@ class RLGANNetTrainer:
             bidirectional=self.bidirectional, w_ae_recon=cfg.w_ae_recon,
             selective=self.precision_selective, bn_stats=self.bn_stats,
             freeze_generator=cfg.freeze_generator)
-        data = self._resident_train_data()
+        data, data_sharded = self._resident_train_data()
         for epoch in range(start_epoch, num_epochs):
             t0 = time.time()
             order, pads = self.train_loader.epoch_indices()
@@ -593,13 +656,13 @@ class RLGANNetTrainer:
                 self.model, optimizer, data,
                 torch.from_numpy(order).long().to(self.device),
                 torch.from_numpy(pads).to(self.device), self.generator,
-                **step_kw)
+                data_sharded=data_sharded, mesh=self.mesh, **step_kw)
             train_loss = float(m["losses"].mean())
             val_loss = self._validate_joint()
             self.joint_losses.append((train_loss, val_loss))
             self.logger.log_scalar("Joint/Train_Loss", train_loss, epoch)
             self.logger.log_scalar("Joint/Val_Loss", val_loss, epoch)
-            print(f"Joint epoch {epoch + 1}/{num_epochs} "
+            _print(f"Joint epoch {epoch + 1}/{num_epochs} "
                   f"train {train_loss:.6f} val {val_loss:.6f} "
                   f"({time.time() - t0:.1f}s)")
             if val_loss < best_val:
@@ -611,24 +674,21 @@ class RLGANNetTrainer:
                         "opt_state": chain_to_optax(optimizer, trainable),
                         "best_val": np.float32(best_val),
                         "epoch": np.int32(epoch)})
-        print(f"Joint done; best val loss {best_val:.6f}")
+        _print(f"Joint done; best val loss {best_val:.6f}")
         return best_val
 
     def _validate_joint(self) -> float:
         """Mean hybrid-output Chamfer over the val split, fixed holes."""
         losses = []
         for i, batch in enumerate(self.val_loader):
-            pc = torch.from_numpy(batch["complete_pc"]).to(self.device)
+            bsz, n = batch["complete_pc"].shape[:2]
             m = steps.joint_eval_step(
-                self.model,
-                {"complete_pc": pc,
-                 "pad": torch.from_numpy(batch["pad"]).to(self.device)},
-                self._fixed_holes(JOINT_VAL_HOLES, i, pc.shape[0],
-                                  pc.shape[1]),
+                self.model, self._put(batch),
+                self._fixed_holes(JOINT_VAL_HOLES, i, bsz, n),
                 cfg=self.td3, spec=self.preproc,
                 bidirectional=self.bidirectional,
                 gate_mode=self.config.model.gate_mode,
-                gate_bias=self.config.model.gate_bias)
+                gate_bias=self.config.model.gate_bias, mesh=self.mesh)
             losses.append(m["loss"])
         return float(torch.stack(losses).mean())
 
@@ -649,14 +709,16 @@ class RLGANNetTrainer:
         lgan_cfg = self.config.training.lgan
         m = self.config.model.lgan
         num_steps = num_steps or cfg.refresh_d_steps
-        print(f"\n=== PHASE 5.5a: discriminator refresh "
+        _print(f"\n=== PHASE 5.5a: discriminator refresh "
               f"({num_steps} D steps) ===")
         self.generate_gfvs()
         gfvs = self.gfvs["clean"]
         bs = lgan_cfg.batch_size or self.config.training.batch_size
         rng = np.random.RandomState(self.config.training.seed + 5)
         idx = rng.randint(0, len(gfvs), size=(num_steps, bs))
-        real = torch.from_numpy(gfvs[idx]).to(self.device)
+        # the real batches sharded along axis 1 (trainer.py:625-630)
+        real = torch.from_numpy(
+            mesh_lib.local_rows(self.mesh, gfvs[idx], axis=1)).to(self.device)
         live = self.model["lgan"]
         d_params = live["params"]["discriminator"]
         for v in tree_leaves(d_params):
@@ -666,7 +728,7 @@ class RLGANNetTrainer:
         snap = self.model.get("gan_path")
         params, state = live["params"], live["state"]
         if snap is not None:
-            print("D refresh: fakes from the PRESERVED serving generator "
+            _print("D refresh: fakes from the PRESERVED serving generator "
                   "(joint.preserve_gan_path)")
             params = dict(params, generator=snap["generator"]["params"])
             state = dict(state, generator=snap["generator"]["state"])
@@ -675,13 +737,14 @@ class RLGANNetTrainer:
                  for _ in range(num_steps)]
         t0 = time.time()
         state, sm = steps.lgan_d_refresh(params, state, d_opt, real, draws,
-                                         lambda_gp=lgan_cfg.lambda_gp)
+                                         lambda_gp=lgan_cfg.lambda_gp,
+                                         mesh=self.mesh)
         if snap is not None:
             state = dict(state, generator=live["state"]["generator"])
         self.model["lgan"] = {"params": live["params"], "state": state}
         d_losses = sm["d_losses"].cpu().numpy()
         self.refresh_d_losses = d_losses.tolist()
-        print(f"D refresh done in {time.time() - t0:.1f}s: loss "
+        _print(f"D refresh done in {time.time() - t0:.1f}s: loss "
               f"{d_losses[0]:.4f} -> {d_losses[-1]:.4f}")
         self.logger.log_scalar("GAN/Refresh_D_Loss", float(d_losses[-1]), 0)
         return float(d_losses[-1])
@@ -692,19 +755,22 @@ class RLGANNetTrainer:
         ``gate_calibration.json``, scoped to ``joint_calibrated`` and
         ``final``, the checkpoints that carry this discriminator
         (trainer.py:665-695)."""
-        print("\n=== PHASE 5.5b: gate calibration (val split) ===")
+        _print("\n=== PHASE 5.5b: gate calibration (val split) ===")
         stats = gate_lib.gate_statistics(
             self.model, self.val_loader,
             lambda i, bsz, n: self._fixed_holes(GATE_HOLES, i, bsz, n),
             cfg=self.td3, device=self.device, spec=self.preproc,
-            bidirectional=self.bidirectional)
+            bidirectional=self.bidirectional, mesh=self.mesh)
         report = gate_lib.calibrate_gate(stats)
         report["checkpoints"] = ["joint_calibrated", "final"]
-        path = gate_lib.save_gate_calibration(str(self.checkpoint_dir),
-                                              report)
+        path = self.checkpoint_dir / gate_lib.GATE_FILE
+        if mesh_lib.is_writer():
+            path = gate_lib.save_gate_calibration(str(self.checkpoint_dir),
+                                                  report)
+        mesh_lib.barrier()
         self._gate_calibrated = True
         self.gate_report = report
-        print(f"gate: mode={report['gate_mode']} "
+        _print(f"gate: mode={report['gate_mode']} "
               f"bias={report['gate_bias']:.4f} "
               f"val chamfer {report['val_chamfer_raw_gate']:.6f} (raw) -> "
               f"{report['val_chamfer_calibrated']:.6f} (calibrated); "
@@ -740,7 +806,7 @@ class RLGANNetTrainer:
         order = ("autoencoder", "lgan", "rl_agent", "joint")
         start_idx = order.index(start_phase or self.current_phase)
         if start_idx > 0:
-            print(f"resuming pipeline at phase {order[start_idx]!r}")
+            _print(f"resuming pipeline at phase {order[start_idx]!r}")
         if start_idx <= 0:
             self.train_autoencoder(t.autoencoder.epochs)
             self.generate_gfvs()
@@ -751,7 +817,7 @@ class RLGANNetTrainer:
         if start_idx <= 3 and t.joint.enabled:
             self.joint_training(t.joint.epochs)
             self.post_joint_refresh()
-        print("\n=== TRAINING COMPLETE ===")
+        _print("\n=== TRAINING COMPLETE ===")
         self.save_checkpoint("final", self.epoch, "joint")
 
     # ------------------------------------------------------------------
@@ -769,10 +835,15 @@ class RLGANNetTrainer:
         goes first, file or directory (a JAX orbax run's, resumed in
         place), so a sibling this save does not write outlives no
         checkpoint it belonged to. Unless this run calibrated the gate,
-        ``name`` is first taken out of a gate sidecar's scope."""
+        ``name`` is first taken out of a gate sidecar's scope. Rank 0 alone
+        writes, the column-sharded leaves gathered whole, and every rank
+        waits for the files at a barrier."""
+        model = dict(mesh_lib.gather_model(self.mesh, self.model))
+        if not mesh_lib.is_writer():
+            mesh_lib.barrier()
+            return
         if not self._gate_calibrated:
             gate_lib.descope_gate_calibration(str(self.checkpoint_dir), name)
-        model = dict(self.model)
         gan_path = model.pop("gan_path", None)
         main = {"model": optax_layout(model_to_numpy(model)),
                 "meta": {"epoch": np.int32(epoch),
@@ -785,6 +856,7 @@ class RLGANNetTrainer:
             ckpt_lib.remove_checkpoint(path)
             if tree is not None:
                 ckpt_lib.save_checkpoint(str(path), tree)
+        mesh_lib.barrier()
 
     def load_checkpoint(self, name: str) -> Tuple[int, str]:
         """Restore the model (``ae``, ``lgan``, the agent and the
@@ -803,11 +875,13 @@ class RLGANNetTrainer:
                                                 device=self.device),
                       "ae": self._on_device(tree_from_numpy(a["params"], cpu),
                                             tree_from_numpy(a["state"], cpu))}
+        # placed on the mesh again (trainer.py:806)
+        self.model = mesh_lib.shard_model_for_mesh(self.mesh, self.model)
         epoch = int(meta["epoch"])
         phase = PHASES[int(meta["phase_idx"])]
         self.current_phase = phase
         self._resume = {"name": name, "phase": phase, "epoch": epoch}
-        print(f"loaded checkpoint {self.checkpoint_dir / name} "
+        _print(f"loaded checkpoint {self.checkpoint_dir / name} "
               f"(epoch {epoch}, phase {phase})")
         return epoch, phase
 
@@ -821,11 +895,11 @@ class RLGANNetTrainer:
         resume, self._resume = self._resume, None
         path = self.checkpoint_dir / (resume["name"] + "_trainstate")
         if not path.exists():
-            print(f"no train state at {path}: {phase} starts from its first "
+            _print(f"no train state at {path}: {phase} starts from its first "
                   "epoch with a fresh optimizer")
             return None
         state = ckpt_lib.load_checkpoint(str(path))
-        print(f"restored {phase} train state from {path} "
+        _print(f"restored {phase} train state from {path} "
               f"(epoch {resume['epoch']})")
         return state
 

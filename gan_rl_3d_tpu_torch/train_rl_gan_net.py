@@ -19,6 +19,18 @@ synthetic dataset there first. Checkpoints go to
 ``training.checkpoint_dir`` as pickles the JAX package reads; the metrics
 to ``<training.log_dir>/metrics.jsonl``.
 
+On N GPUs, one process each, launched by torchrun::
+
+  torchrun --nproc-per-node N -m gan_rl_3d_tpu_torch.train_rl_gan_net \
+      --config configs/config.yaml [--dist-backend nccl]
+
+With ``WORLD_SIZE`` set the CLI joins the process group (``--dist-backend``:
+``nccl`` on the card by default, ``gloo`` with ``--device cpu``; a caller
+that joined it already keeps its group) and rank r runs on
+``cuda:LOCAL_RANK``; the trainer then trains data-parallel over every rank
+and rank 0 alone writes (``train.trainer``). Without torchrun nothing
+changes.
+
 ``--profile`` traces the run with torch.profiler into
 ``<training.log_dir>/profile`` (a Chrome trace; keep the run short).
 ``--debug-nans`` runs the phase in torch's anomaly mode: a training step
@@ -51,6 +63,9 @@ def _parser() -> argparse.ArgumentParser:
                         "non-finite training loss (and anomaly mode)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a GPU) or cpu")
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                   help="torch.distributed backend under torchrun (default "
+                        "nccl with --device cuda, gloo with --device cpu)")
     return p
 
 
@@ -75,25 +90,41 @@ def main(argv=None):
     ``joint`` the best joint val loss; None for ``full`` or after an
     interrupt)."""
     args = _parser().parse_args(argv)
-    import torch
+    import os
 
+    import torch
+    import torch.distributed as dist
+
+    from gan_rl_3d_tpu_torch.parallel import mesh as mesh_lib
     from gan_rl_3d_tpu_torch.train.trainer import RLGANNetTrainer
     from gan_rl_3d_tpu_torch.utils.profiling import trace
 
-    trainer = RLGANNetTrainer(args.config, device=args.device)
-    resumed = bool(args.resume)
-    if resumed:
-        trainer.load_checkpoint(args.resume)
+    device = args.device
+    joins = "WORLD_SIZE" in os.environ and not dist.is_initialized()
+    if joins:
+        backend = args.dist_backend or (
+            "gloo" if torch.device(device).type == "cpu" else "nccl")
+        device = mesh_lib.init_distributed(backend, device)
+    elif dist.is_initialized():
+        device = mesh_lib.local_device(device)
     try:
-        with trace(f"{trainer.config.training.log_dir}/profile",
-                   enabled=args.profile), \
-                torch.autograd.set_detect_anomaly(args.debug_nans):
-            return _run_phase(trainer, args.phase, resumed)
-    except KeyboardInterrupt:
-        print("\nTraining interrupted by user")
-        return None
+        trainer = RLGANNetTrainer(args.config, device=device)
+        resumed = bool(args.resume)
+        if resumed:
+            trainer.load_checkpoint(args.resume)
+        try:
+            with trace(f"{trainer.config.training.log_dir}/profile",
+                       enabled=args.profile and mesh_lib.is_writer()), \
+                    torch.autograd.set_detect_anomaly(args.debug_nans):
+                return _run_phase(trainer, args.phase, resumed)
+        except KeyboardInterrupt:
+            print("\nTraining interrupted by user")
+            return None
+        finally:
+            trainer.close()
     finally:
-        trainer.close()
+        if joins:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -31,6 +31,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from gan_rl_3d_tpu_torch.parallel.mesh import is_writer
 from gan_rl_3d_tpu_torch.utils import zstd
 from gan_rl_3d_tpu_torch.utils.ocdbt import OcdbtStore
 from gan_rl_3d_tpu_torch.utils.tree import tree_map
@@ -137,7 +138,9 @@ class NumpyUnpickler(pickle.Unpickler):
 def save_checkpoint(path: str, tree: Dict[str, Any]) -> None:
     """Write ``tree`` (tensors, numpy arrays or numbers as leaves, the
     stand-ins as nodes) as a pickle of numpy arrays; floating tensors are
-    written as float32."""
+    written as float32. Under torch.distributed only rank 0 writes."""
+    if not is_writer():
+        return
     p = Path(path)
     p.parent.mkdir(parents=True, exist_ok=True)
     with open(p, "wb") as f:

@@ -17,6 +17,8 @@ import logging
 import time
 from pathlib import Path
 
+from gan_rl_3d_tpu_torch.parallel.mesh import is_writer
+
 log = logging.getLogger(__name__)
 
 
@@ -25,9 +27,14 @@ class MetricsLogger:
                  use_wandb: bool = False, project_name: str = "RL-GAN-Net",
                  filename: str = "metrics.jsonl"):
         self.log_dir = Path(log_dir)
+        self._tb = None
+        self._wandb = None
+        # under torch.distributed only rank 0 writes
+        self._file = None
+        if not is_writer():
+            return
         self.log_dir.mkdir(parents=True, exist_ok=True)
         self._file = open(self.log_dir / filename, "a", buffering=1)
-        self._tb = None
         if use_tensorboard:
             try:
                 from torch.utils.tensorboard import SummaryWriter
@@ -35,7 +42,6 @@ class MetricsLogger:
             except ImportError:
                 log.warning("logging.use_tensorboard=true but tensorboard "
                             "is not installed; falling back to JSONL only")
-        self._wandb = None
         if use_wandb:
             try:
                 import wandb
@@ -46,6 +52,8 @@ class MetricsLogger:
                             "installed; falling back to JSONL/TensorBoard")
 
     def log_scalar(self, tag: str, value: float, step: int) -> None:
+        if self._file is None:
+            return
         rec = {"tag": tag, "value": float(value), "step": int(step),
                "time": time.time()}
         self._file.write(json.dumps(rec) + "\n")
@@ -59,7 +67,7 @@ class MetricsLogger:
             self.log_scalar(f"{prefix}/{k}", float(v), step)
 
     def close(self) -> None:
-        if self._file.closed:
+        if self._file is None or self._file.closed:
             return
         self._file.close()
         if self._tb is not None:

@@ -805,3 +805,103 @@ def test_gate_stats_step_on_card_matches_cpu(cuda):
             chip_smoke.TOL_F32, k
     assert float((out["margin"].cpu() - ref["margin"]).abs().max()) <= \
         chip_smoke.TOL_GATE_MARGIN * float(ref["margin"].abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the mesh on the card (gan_rl_3d_tpu_torch/parallel/)
+# ---------------------------------------------------------------------------
+
+MESH_B, MESH_N = 8, 256
+MESH_AE = dict(latent_dim=32, num_points=MESH_N,
+               encoder_dims=(16, 32, 32, 64, 32), decoder_dims=(64, 64, 768))
+
+
+def _mesh_ae_step(device, mesh, seed=0):
+    """One f32 ae_train_step at small widths on ``device`` under ``mesh``
+    (this rank's rows of a global batch of MESH_B, the global draws):
+    (loss, {"params", "state"} on the CPU, the start)."""
+    from gan_rl_3d_tpu_torch.config import AETrainConfig
+    from gan_rl_3d_tpu_torch.models import autoencoder as ae
+    from gan_rl_3d_tpu_torch.ops import pointcloud as pc_ops
+    from gan_rl_3d_tpu_torch.parallel import mesh as mesh_lib
+    from gan_rl_3d_tpu_torch.train import steps
+
+    p, s = ae.autoencoder_init(torch.Generator().manual_seed(seed), 3,
+                               **MESH_AE)
+    start = {"params": tree_map(lambda v: v.clone(), p),
+             "state": tree_map(lambda v: v.clone(), s)}
+    params = tree_map(lambda v: v.to(device).requires_grad_(True), p)
+    state = tree_map(lambda v: v.to(device), s)
+    opt, _ = steps.make_ae_optimizer(params, AETrainConfig(), 10)
+    pc, _ = _clouds(MESH_B, MESH_N, seed + 1)
+    draws = pc_ops.draw_training_batch(torch.Generator().manual_seed(seed),
+                                       MESH_B, MESH_N)
+    batch = mesh_lib.shard_batch(mesh, {"complete_pc": pc.to(device),
+                                        "pad": torch.zeros(MESH_B,
+                                                           device=device)})
+    state, m = steps.ae_train_step(
+        params, state, opt, batch, tree_map(lambda v: v.to(device), draws),
+        mesh=mesh)
+    out = {"params": tree_map(lambda v: v.detach().cpu(), params),
+           "state": tree_map(lambda v: v.cpu(), state)}
+    return float(m["loss"]), out, start
+
+
+def _gloo_rank(rank, world, store, out):
+    import torch.distributed as dist
+
+    from gan_rl_3d_tpu_torch.parallel import mesh as mesh_lib
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = mesh_lib.make_mesh(device="cuda:0")
+        loss, net, _ = _mesh_ae_step(torch.device("cuda", 0), mesh)
+        if rank == 0:
+            torch.save({"loss": loss, "net": net}, out)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_world_one_nccl_step_is_the_one_process_step(cuda, tmp_path):
+    """A 1x1 mesh over an NCCL group of one rank issues no collective: the
+    AE step's loss and every leaf equal the step without a mesh, bit for
+    bit."""
+    import torch.distributed as dist
+
+    from gan_rl_3d_tpu_torch.parallel import collectives
+    from gan_rl_3d_tpu_torch.parallel import mesh as mesh_lib
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = mesh_lib.make_mesh(device=cuda)
+        before = sum(collectives.calls.values())
+        a = _mesh_ae_step(cuda, mesh)
+        assert sum(collectives.calls.values()) == before
+    finally:
+        dist.destroy_process_group()
+    b = _mesh_ae_step(cuda, None)
+    assert a[0] == b[0]
+    for x, y in zip(chip_smoke._leaves(a[1]), chip_smoke._leaves(b[1])):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_the_card_match_one_process(cuda, tmp_path):
+    """Two gloo ranks sharing the card (CUDA tensors staged through the
+    host) take one DP AE step: the loss within 1e-4 relative and the
+    update within 1e-2 of the one process's in the 2-norm (Adam-noise
+    leaves within 2 lr), as chip_smoke's multi path holds them."""
+    import torch.multiprocessing as mp
+
+    out = tmp_path / "rank0.pt"
+    mp.spawn(_gloo_rank, args=(2, str(tmp_path / "store"), str(out)),
+             nprocs=2, join=True)
+    got = torch.load(out, weights_only=False)
+    loss, net, start = _mesh_ae_step(cuda, None)
+    assert abs(got["loss"] - loss) <= 1e-4 * abs(loss)
+    update, _, _, noise = chip_smoke.network_errs(got["net"], net, start)
+    assert update <= 1e-2 and noise <= 2e-3, (update, noise)
