@@ -35,6 +35,7 @@ from gan_rl_3d_tpu_torch.ops import encoder_kernel, quantize
 from gan_rl_3d_tpu_torch.parallel import collectives
 from gan_rl_3d_tpu_torch.parallel import mesh as mesh_lib
 from gan_rl_3d_tpu_torch.utils.checkpoint import NumpyUnpickler, to_numpy
+from gan_rl_3d_tpu_torch.utils.profiling import span
 from gan_rl_3d_tpu_torch.utils.tree import tree_map
 
 Tensor = torch.Tensor
@@ -224,33 +225,42 @@ def complete_fast(engine: dict, pc: Tensor, mask: Optional[Tensor] = None, *,
             hybrid=hybrid, gate_mode=gate_mode, gate_bias=gate_bias)
         return {k: collectives.gather_rows(v, mesh) for k, v in local.items()}
     check_gate_mode(gate_mode)
+    with span("serve.call"):
+        return _complete_fast(engine, pc, mask, hybrid, gate_mode, gate_bias)
+
+
+def _complete_fast(engine, pc, mask, hybrid, gate_mode, gate_bias):
+    """``complete_fast`` on this process's rows, in the spans
+    serve.encoder, serve.tail and serve.gate (``utils.profiling``)."""
     dtype = engine["encoder"]["layers"][0][0].dtype
     bsz = pc.shape[0]
-    if "encoder_q" in engine:
-        noisy_gfv = encoder_kernel.apply_head(
-            encoder_kernel.fused_encoder_pool_int8(pc, engine["encoder_q"],
-                                                   mask),
-            engine["encoder"]["head"])
-    else:
-        noisy_gfv = encoder_kernel.encode_fused(pc, engine["encoder"], mask,
-                                                compute_dtype=dtype)
-    z = _apply_mlp(engine["actor"], noisy_gfv, dtype, "tanh")
-    if "gan_decoder" in engine:
-        # the preserved serving GAN branch decodes through its own weights,
-        # so the two branches take two (B, .) passes
-        clean_gfv = _apply_mlp(engine["gan_generator"], z, dtype, "tanh")
-        completed = _apply_mlp(engine["gan_decoder"], clean_gfv,
-                               dtype).reshape(bsz, -1, 3)
-        ae_recon = _apply_mlp(engine["decoder"], noisy_gfv,
-                              dtype).reshape(bsz, -1, 3)
-        both_gfv = torch.cat([clean_gfv, noisy_gfv], dim=0)
-    else:
-        # one (2B, .) pass through the shared decoder for both branches
-        clean_gfv = _apply_mlp(engine["generator"], z, dtype, "tanh")
-        both_gfv = torch.cat([clean_gfv, noisy_gfv], dim=0)
-        both_pc = _apply_mlp(engine["decoder"], both_gfv,
-                             dtype).reshape(2 * bsz, -1, 3)
-        completed, ae_recon = both_pc[:bsz], both_pc[bsz:]
+    with span("serve.encoder"):
+        if "encoder_q" in engine:
+            noisy_gfv = encoder_kernel.apply_head(
+                encoder_kernel.fused_encoder_pool_int8(
+                    pc, engine["encoder_q"], mask),
+                engine["encoder"]["head"])
+        else:
+            noisy_gfv = encoder_kernel.encode_fused(
+                pc, engine["encoder"], mask, compute_dtype=dtype)
+    with span("serve.tail"):
+        z = _apply_mlp(engine["actor"], noisy_gfv, dtype, "tanh")
+        if "gan_decoder" in engine:
+            # the preserved serving GAN branch decodes through its own
+            # weights, so the two branches take two (B, .) passes
+            clean_gfv = _apply_mlp(engine["gan_generator"], z, dtype, "tanh")
+            completed = _apply_mlp(engine["gan_decoder"], clean_gfv,
+                                   dtype).reshape(bsz, -1, 3)
+            ae_recon = _apply_mlp(engine["decoder"], noisy_gfv,
+                                  dtype).reshape(bsz, -1, 3)
+            both_gfv = torch.cat([clean_gfv, noisy_gfv], dim=0)
+        else:
+            # one (2B, .) pass through the shared decoder for both branches
+            clean_gfv = _apply_mlp(engine["generator"], z, dtype, "tanh")
+            both_gfv = torch.cat([clean_gfv, noisy_gfv], dim=0)
+            both_pc = _apply_mlp(engine["decoder"], both_gfv,
+                                 dtype).reshape(2 * bsz, -1, 3)
+            completed, ae_recon = both_pc[:bsz], both_pc[bsz:]
     results = {
         "noisy_gfv": noisy_gfv,
         "z_vector": z,
@@ -264,5 +274,7 @@ def complete_fast(engine: dict, pc: Tensor, mask: Optional[Tensor] = None, *,
                                         dtype)
             return both[:bsz], both[bsz:]
 
-        results.update(gate(completed, ae_recon, gate_mode, scores, gate_bias))
+        with span("serve.gate"):
+            results.update(gate(completed, ae_recon, gate_mode, scores,
+                                gate_bias))
     return results

@@ -51,6 +51,7 @@ from gan_rl_3d_tpu_torch.ops import pointcloud as pc_ops
 from gan_rl_3d_tpu_torch.parallel import collectives
 from gan_rl_3d_tpu_torch.parallel import mesh as mesh_lib
 from gan_rl_3d_tpu_torch.train.replay_buffer import ReplayBuffer
+from gan_rl_3d_tpu_torch.utils.profiling import backward_spans, span
 from gan_rl_3d_tpu_torch.utils.tree import tree_leaves, tree_map
 
 Tensor = torch.Tensor
@@ -149,19 +150,23 @@ def make_ae_optimizer(params: dict, cfg: AETrainConfig, steps_per_epoch: int
     every ``optimizer.step()``. "step": lr * gamma^((count // spe) //
     scheduler_step); "cosine": optax's cosine decay to 0 over epochs * spe
     updates. ``count`` is the number of updates before this one, 0 at the
-    first (steps.py:65-84)."""
-    opt = torch.optim.Adam(tree_leaves(params), lr=cfg.lr,
-                           weight_decay=cfg.weight_decay)
-    spe = max(steps_per_epoch, 1)
-    if cfg.lr_schedule == "cosine":
-        decay = max(cfg.epochs * steps_per_epoch, 1)
+    first (steps.py:65-84). The span ``setup.optimizer`` times it: the
+    process's first ``torch.optim`` optimizer imports ``torch._dynamo``."""
+    with span("setup.optimizer"):
+        opt = torch.optim.Adam(tree_leaves(params), lr=cfg.lr,
+                               weight_decay=cfg.weight_decay)
+        spe = max(steps_per_epoch, 1)
+        if cfg.lr_schedule == "cosine":
+            decay = max(cfg.epochs * steps_per_epoch, 1)
 
-        def factor(count):
-            return 0.5 * (1.0 + math.cos(math.pi * min(count, decay) / decay))
-    else:
-        def factor(count):
-            return cfg.scheduler_gamma ** ((count // spe) // cfg.scheduler_step)
-    return opt, torch.optim.lr_scheduler.LambdaLR(opt, factor)
+            def factor(count):
+                return 0.5 * (1.0 + math.cos(math.pi * min(count, decay)
+                                             / decay))
+        else:
+            def factor(count):
+                return cfg.scheduler_gamma ** ((count // spe)
+                                               // cfg.scheduler_step)
+        return opt, torch.optim.lr_scheduler.LambdaLR(opt, factor)
 
 
 def _policy_cast(tree, dtype):
@@ -224,26 +229,44 @@ def ae_train_step(params: dict, bn_state: dict, optimizer: torch.optim.Adam,
 def _ae_train_step(params, bn_state, optimizer, batch, draws, *, scheduler,
                    augment, compute_dtype, spec, recon_loss, bidirectional,
                    selective, bn_stats):
-    complete, incomplete, mask = pc_ops.apply_training_batch(
-        batch["complete_pc"], draws, spec=spec, do_augment=augment)
-    p, x_in = params, incomplete
-    if compute_dtype is not None:
-        p = (_policy_cast_ae_selective(p, compute_dtype) if selective
-             else _policy_cast(p, compute_dtype))
-        x_in = incomplete.to(compute_dtype)
+    """The step in spans (``utils.profiling``): ae.preprocess, ae.encoder,
+    ae.decoder, ae.chamfer, ae.backward (its device time split back onto
+    the chamfer, decoder and encoder at the gradients of ``recon`` and
+    ``gfv``) and ae.optimizer."""
+    with span("ae.preprocess"):
+        complete, incomplete, mask = pc_ops.apply_training_batch(
+            batch["complete_pc"], draws, spec=spec, do_augment=augment)
+        p, x_in = params, incomplete
+        if compute_dtype is not None:
+            p = (_policy_cast_ae_selective(p, compute_dtype) if selective
+                 else _policy_cast(p, compute_dtype))
+            x_in = incomplete.to(compute_dtype)
     optimizer.zero_grad(set_to_none=True)
-    (recon, _gfv), new_state = ae.autoencoder_apply(
-        p, bn_state, x_in, mask, training=True, bn_stats=bn_stats)
-    per = _recon_loss(recon, complete, recon_loss=recon_loss,
-                      bidirectional=bidirectional)
-    loss = _masked_mean(per, batch["pad"])
-    _check_finite(loss, "AE loss")
-    loss.backward()
-    _sync_grads(optimizer)
-    optimizer.step()
-    if scheduler is not None:
-        scheduler.step()
-    return new_state, {"loss": _total(loss)}
+    # ae.autoencoder_apply, in its two halves
+    with span("ae.encoder"):
+        gfv, enc_state = ae.any_encoder_apply(
+            p["encoder"], bn_state["encoder"], x_in, mask, training=True,
+            bn_stats=bn_stats)
+    with span("ae.decoder"):
+        recon, dec_state = ae.any_decoder_apply(
+            p["decoder"], bn_state["decoder"], gfv, training=True,
+            bn_stats=bn_stats)
+    with span("ae.chamfer"):
+        per = _recon_loss(recon, complete, recon_loss=recon_loss,
+                          bidirectional=bidirectional)
+        loss = _masked_mean(per, batch["pad"])
+        _check_finite(loss, "AE loss")
+    with span("ae.backward"):
+        with backward_spans((("ae.chamfer", recon), ("ae.decoder", gfv)),
+                            "ae.encoder"):
+            loss.backward()
+        _sync_grads(optimizer)
+    with span("ae.optimizer"):
+        optimizer.step()
+        if scheduler is not None:
+            scheduler.step()
+    return ({"encoder": enc_state, "decoder": dec_state},
+            {"loss": _total(loss)})
 
 
 @torch.no_grad()
@@ -282,15 +305,19 @@ def ae_train_epoch(params: dict, bn_state: dict, optimizer, scheduler,
     (``mesh.row_sharding``)."""
     losses = []
     for idx, pad in zip(order, pads):
-        # the global batch's draws; the step keeps this rank's rows
-        draws = pc_ops.draw_training_batch(generator, idx.shape[0],
-                                           data.shape[1], spec=spec)
-        with mesh_lib.use(mesh):
-            complete = _resident_batch(data, _local(idx), data_sharded)
-        bn_state, m = ae_train_step(
-            params, bn_state, optimizer,
-            {"complete_pc": complete, "pad": mesh_lib.local_rows(mesh, pad)},
-            draws, scheduler=scheduler, spec=spec, mesh=mesh, **step_kw)
+        with span("ae.step"):
+            with span("ae.batch"):
+                # the global batch's draws; the step keeps this rank's rows
+                draws = pc_ops.draw_training_batch(generator, idx.shape[0],
+                                                   data.shape[1], spec=spec)
+                with mesh_lib.use(mesh):
+                    complete = _resident_batch(data, _local(idx),
+                                               data_sharded)
+            bn_state, m = ae_train_step(
+                params, bn_state, optimizer,
+                {"complete_pc": complete,
+                 "pad": mesh_lib.local_rows(mesh, pad)},
+                draws, scheduler=scheduler, spec=spec, mesh=mesh, **step_kw)
         losses.append(m["loss"])
     return bn_state, {"losses": torch.stack(losses) if losses
                       else torch.zeros(0)}

@@ -32,7 +32,9 @@ and rank 0 alone writes (``train.trainer``). Without torchrun nothing
 changes.
 
 ``--profile`` traces the run with torch.profiler into
-``<training.log_dir>/profile`` (a Chrome trace; keep the run short).
+``<training.log_dir>/profile`` (a Chrome trace; keep the run short), and
+writes ``spans.json`` beside it: the program's spans (``utils.profiling``)
+with their host and device seconds, and the totals of every span name.
 ``--debug-nans`` runs the phase in torch's anomaly mode: a training step
 raises FloatingPointError at its first non-finite loss, and a backward op
 that makes a NaN is named. Ctrl-C stops training with "Training
@@ -57,7 +59,8 @@ def _parser() -> argparse.ArgumentParser:
                         "(e.g. autoencoder_best, lgan_best)")
     p.add_argument("--profile", action="store_true",
                    help="trace the run with torch.profiler into "
-                        "<log_dir>/profile")
+                        "<log_dir>/profile, with the program's spans and "
+                        "their device seconds in spans.json beside it")
     p.add_argument("--debug-nans", action="store_true",
                    help="fail fast with FloatingPointError at the first "
                         "non-finite training loss (and anomaly mode)")

@@ -2,8 +2,8 @@
 JAX package's (gan_rl_3d_tpu/utils/metrics_logging.py, utils/profiling.py,
 the root train_rl_gan_net.py): the trainer writes the JAX trainer's
 (tag, step) sequence over the whole curriculum, on the variant family
-too; ``load_config(overrides=)``; ``StepTimer`` and ``trace`` as
-tests/test_profiling.py checks them; ``--profile``, ``--debug-nans`` and
+too; ``load_config(overrides=)``; ``trace`` as tests/test_profiling.py
+checks it; ``--profile``, ``--debug-nans`` and
 an interrupt; the logger without TensorBoard or wandb. CPU, small
 widths."""
 
@@ -136,23 +136,6 @@ def test_load_config_overrides_match_jax(tmp_path):
     assert tcfg._deep_merge({"a": {"b": 1}, "c": 2},
                             {"a": {"d": 3}, "c": {"e": 4}}) == {
         "a": {"b": 1, "d": 3}, "c": {"e": 4}}
-
-
-def test_step_timer():
-    """tests/test_profiling.py::test_step_timer on the port."""
-    timer = profiling.StepTimer()
-    x = torch.ones((256, 256))
-    for _ in range(3):
-        with timer.step():
-            out = x @ x
-            timer.observe({"out": out})
-    assert timer.last_s is not None and timer.last_s > 0
-    assert timer.ema_s is not None and timer.ema_s > 0
-    ema = timer.ema_s
-    with timer.step():
-        pass
-    assert timer.ema_s == pytest.approx(0.1 * timer.last_s + 0.9 * ema)
-    profiling.sync({"a": [torch.zeros(2), None]})  # host tensors: no wait
 
 
 def test_trace_context(tmp_path):
