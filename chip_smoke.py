@@ -156,7 +156,14 @@ Phases, each failing the run if it fails:
      and K5 must launch on the path (every rank's and (a)'s launches);
      step times per rank count, not a scaling figure; (c) the same over
      NCCL when two or more cards are visible, else one line saying why
-     not.
+     not;
+  12. the training BatchNorm + ReLU op (ops/bn_train.py) at each
+     activation shape of the attn-adaptive-train-ae cell's step (B=2048,
+     N=2048): against the composite it replaces, twice for identical
+     bits, its forward and backward beside their byte bounds and the
+     composite's time; then one f32 AE step (the flagship) and one variant
+     AE step and one joint step on fresh weights, card against CPU, lr 0
+     and twice the lr failing the last two (run before the times of 9).
 
 The next-to-last line is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}. Any failure raises and exits
@@ -2575,14 +2582,42 @@ def joint_step_on(dev, warm, trainer, batch, draws, lr_scale=1.0):
 
 
 def joint_checks(device, trainer):
-    """One f32 ``joint_train_step`` at B=8, full width, on the card and on
-    CPU copies from the same weights, draws and Adam moments one step old:
-    the loss, each network's update, its state; lr 0 on the card must fail
-    the update check. Then ``gate_stats_step`` on a val batch, card
+    """``joint_step_check``, then ``gate_stats_step`` on a val batch, card
     against CPU."""
     from gan_rl_3d_tpu_torch.train import gate as gate_lib
     from gan_rl_3d_tpu_torch.train import trainer as trainer_lib
 
+    cpu = torch.device("cpu")
+    joint_step_check(device, trainer)
+    vb = next(iter(trainer.val_loader))
+    vbatch = {"complete_pc": torch.from_numpy(vb["complete_pc"]),
+              "pad": torch.from_numpy(vb["pad"])}
+    vdraws = _on(trainer._fixed_holes(trainer_lib.GATE_HOLES, 0,
+                                      *vbatch["complete_pc"].shape[:2]), cpu)
+    model_cpu = {k: _on(trainer.model[k], cpu) for k in ("ae", "lgan")}
+    model_cpu["agent"] = {"actor": _on(trainer.model["agent"]["actor"], cpu)}
+    if "gan_path" in trainer.model:
+        model_cpu["gan_path"] = _on(trainer.model["gan_path"], cpu)
+    kw = dict(cfg=trainer.td3, spec=trainer.preproc,
+              bidirectional=trainer.bidirectional)
+    gs = gate_lib.gate_stats_step(trainer.model, _on(vbatch, device),
+                                  _on(vdraws, device), **kw)
+    ref_gs = gate_lib.gate_stats_step(model_cpu, vbatch, vdraws, **kw)
+    cd = max(scaled_err(gs[k].cpu(), ref_gs[k]) for k in ("cd_rl", "cd_ae"))
+    me = (float((gs["margin"].cpu() - ref_gs["margin"]).abs().max())
+          / float(ref_gs["margin"].abs().max()))
+    print(f"gate_stats_step B={vbatch['pad'].shape[0]}: card vs CPU, "
+          f"Chamfer distances {cd:.3e} scaled (tol {TOL_F32:g}), margins "
+          f"{me:.3e} of the largest (tol {TOL_GATE_MARGIN:g})")
+    expect(cd <= TOL_F32 and me <= TOL_GATE_MARGIN,
+           "gate_stats_step: the card disagrees with the CPU")
+
+
+def joint_step_check(device, trainer):
+    """One f32 ``joint_train_step`` at B=8, full width, on the card and on
+    CPU copies from the same weights, draws and Adam moments one step old:
+    the loss, each network's update, its state; lr 0 and twice the lr on
+    the card must fail the update check."""
     cpu = torch.device("cpu")
     jc = trainer.config.training.joint
     warm = joint_warm(trainer, seed=60)
@@ -2620,28 +2655,6 @@ def joint_checks(device, trainer):
         expect(min(power.values()) > TOL_JOINT_UPDATE, "joint_train_step: "
                f"the update check passes a step with lr x {scale:g}")
 
-    vb = next(iter(trainer.val_loader))
-    vbatch = {"complete_pc": torch.from_numpy(vb["complete_pc"]),
-              "pad": torch.from_numpy(vb["pad"])}
-    vdraws = _on(trainer._fixed_holes(trainer_lib.GATE_HOLES, 0,
-                                      *vbatch["complete_pc"].shape[:2]), cpu)
-    model_cpu = {k: _on(trainer.model[k], cpu) for k in ("ae", "lgan")}
-    model_cpu["agent"] = {"actor": _on(trainer.model["agent"]["actor"], cpu)}
-    if "gan_path" in trainer.model:
-        model_cpu["gan_path"] = _on(trainer.model["gan_path"], cpu)
-    kw = dict(cfg=trainer.td3, spec=trainer.preproc,
-              bidirectional=trainer.bidirectional)
-    gs = gate_lib.gate_stats_step(trainer.model, _on(vbatch, device),
-                                  _on(vdraws, device), **kw)
-    ref_gs = gate_lib.gate_stats_step(model_cpu, vbatch, vdraws, **kw)
-    cd = max(scaled_err(gs[k].cpu(), ref_gs[k]) for k in ("cd_rl", "cd_ae"))
-    me = (float((gs["margin"].cpu() - ref_gs["margin"]).abs().max())
-          / float(ref_gs["margin"].abs().max()))
-    print(f"gate_stats_step B={vbatch['pad'].shape[0]}: card vs CPU, "
-          f"Chamfer distances {cd:.3e} scaled (tol {TOL_F32:g}), margins "
-          f"{me:.3e} of the largest (tol {TOL_GATE_MARGIN:g})")
-    expect(cd <= TOL_F32 and me <= TOL_GATE_MARGIN,
-           "gate_stats_step: the card disagrees with the CPU")
 
 # ---------------------------------------------------------------------------
 # the attention-encoder / adaptive-decoder family
@@ -2852,13 +2865,19 @@ def variant_ae_step_on(dev, warm, trainer, batch, draws, lr_scale=1.0):
 
 
 def variant_checks(device, trainer):
+    """``variant_step_check``, then ``joint_checks`` on the variant's
+    ``final``."""
+    variant_step_check(device, trainer)
+    joint_checks(device, trainer)
+
+
+def variant_step_check(device, trainer):
     """One f32 variant ``ae_train_step`` at B=8, full width, on the card and
     on CPU copies from the same weights, draws and Adam moments one step
     old, near-tie picks shared (``tie_sharing``): the loss within
     TOL_RL_LOSS, each network's update within
     TOL_RL_UPDATE of the CPU's in the 2-norm, its state within
-    TOL_RL_PARAM; lr 0 and twice the lr on the card must fail. Then
-    ``joint_checks`` on the variant's ``final``."""
+    TOL_RL_PARAM; lr 0 and twice the lr on the card must fail."""
     cpu = torch.device("cpu")
     lr = trainer.config.training.autoencoder.lr
     warm = variant_ae_warm(trainer, seed=90)
@@ -2896,7 +2915,6 @@ def variant_checks(device, trainer):
               + f" (must exceed {TOL_RL_UPDATE:g})")
         expect(min(power.values()) > TOL_RL_UPDATE, "variant ae_train_step: "
                f"the update check passes a step with lr x {scale:g}")
-    joint_checks(device, trainer)
 
 
 def phase_variant_times(device, card: str):
@@ -2952,6 +2970,193 @@ def phase_variant_times(device, card: str):
         del big, big_mask, out
     torch.cuda.synchronize()
     return cases, ms
+
+
+# ---------------------------------------------------------------------------
+# the training BatchNorm + ReLU op (ops/bn_train.py, csrc/bn_train.cu)
+# ---------------------------------------------------------------------------
+
+# the activations of the 10 training BN layers of the variant's AE step at
+# B=2048, N=2048 (the attn-adaptive-train-ae cell), with how many layers a
+# step has of each
+BN_CELL_LAYERS = (((2048, 2048, 64), 2), ((2048, 2048, 128), 3),
+                  ((2048, 2048, 256), 1), ((2048, 128), 1), ((2048, 256), 1),
+                  ((2048, 512), 1), ((2048, 1024), 1))
+# op against composite: y and the state bit for bit; the gradients, of
+# their largest element, sums in another order
+# (tests/test_torch_port_bn_train.py says why); the cotangent is 0 where y
+# lies within BN_BAND of its largest element from the ReLU's kink
+TOL_BN, BN_BAND = 1e-5, 1e-4
+
+
+def bn_inputs(shape, seed, device) -> dict:
+    """z ~ 0.5 + 2 N(0, 1), the dense bias, BN parameters and running state
+    near their initial values, and a cotangent, on ``device``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    c = shape[-1]
+
+    def draw(shape, lo, spread):
+        return lo + spread * torch.randn(shape, generator=g, device=device)
+
+    return {"z": draw(shape, 0.5, 2.0), "b": draw((c,), 0.0, 0.1),
+            "scale": draw((c,), 1.0, 0.1), "bias": draw((c,), 0.0, 0.1),
+            "mean": draw((c,), 0.0, 0.1),
+            "var": 1.0 + 0.1 * torch.rand(c, generator=g, device=device),
+            "dy": draw(shape, 0.0, 1.0)}
+
+
+def _bn_leaves(inp):
+    """z, b, scale and bias as leaves that take a gradient: ``inp``'s own
+    where they already do, else copies."""
+    return [inp[k] if inp[k].requires_grad
+            else inp[k].detach().clone().requires_grad_(True)
+            for k in ("z", "b", "scale", "bias")]
+
+
+def bn_composite(inp, dy=None):
+    """The composite dense -> batchnorm_train (single_read_grouped) ->
+    relu on z given: (y, state, gradients of z, b, scale, bias, y before
+    the ReLU); no gradients without ``dy``."""
+    from gan_rl_3d_tpu_torch import nn
+    z, b, scale, bias = _bn_leaves(inp)
+    pre, state = nn.batchnorm_train(
+        {"scale": scale, "bias": bias},
+        {"mean": inp["mean"], "var": inp["var"]}, z + b,
+        mode="single_read_grouped")
+    y = torch.relu(pre)
+    grads = (torch.autograd.grad(y, (z, b, scale, bias), dy)
+             if dy is not None else None)
+    return y.detach(), state, grads, pre.detach()
+
+
+def bn_op(inp, dy):
+    """The op on the same operands: (y, state, gradients)."""
+    from gan_rl_3d_tpu_torch.ops import bn_train as bt
+    z, b, scale, bias = _bn_leaves(inp)
+    y, mean, var = bt._BNReLU.apply(z, b, scale, bias, inp["mean"],
+                                    inp["var"], True, 0.1, 1e-5)
+    grads = torch.autograd.grad(y, (z, b, scale, bias), dy)
+    return y.detach(), {"mean": mean, "var": var}, grads
+
+
+def bn_errors(out, ref) -> dict:
+    """Whether y and the state equal the composite's bit for bit
+    ("forward_differs": 0 or 1); each gradient's largest difference from the
+    composite's, of its largest element, in f32 (an f64 copy of a 4.3 GB
+    activation would not fit beside the rest); db (an analytic 0 both
+    sides compute as rounding noise) against the sum of |dz| of its
+    channel."""
+    y, st, (dz, db, d_scale, d_bias) = out
+    ry, rst, (rdz, rdb, rd_scale, rd_bias), _ = ref
+    same = torch.equal(y, ry) and all(torch.equal(st[k], rst[k])
+                                      for k in ("mean", "var"))
+    errs = {"forward_differs": float(not same)}
+    errs.update({k: float((x - r).abs().max() / r.abs().max())
+                 for k, x, r in (("dz", dz, rdz),
+                                 ("d_scale", d_scale, rd_scale),
+                                 ("d_bias", d_bias, rd_bias))})
+    dz_abs = rdz.abs().reshape(-1, rdz.shape[-1]).sum(dim=0)
+    errs["db"] = float(((db - rdb).abs() / dz_abs).max())
+    return errs
+
+
+def phase_bn(device) -> dict:
+    """The training BatchNorm + ReLU op at each activation shape of the
+    attn-adaptive-train-ae cell's step (B=2048): against the composite it
+    replaces (y and state bit for bit, gradients within TOL_BN; a second
+    run the same bits), then times by CUDA events: its forward and
+    backward wrappers beside their byte bounds (3T and 5T, T one f32 pass
+    over the activation), the op under autograd beside the composite's
+    forward and backward; the step's totals over its 10 layers. Then the
+    card-vs-CPU
+    step checks that run through the op: ``step_check`` (a flagship f32 AE
+    step), ``variant_step_check`` and ``joint_step_check`` on fresh
+    weights, with lr 0 and twice the lr failing the last two."""
+    import types
+
+    from gan_rl_3d_tpu_torch.models import rl_gan_net as net
+    from gan_rl_3d_tpu_torch.ops import bn_train as bt
+
+    rows, total = {}, {"op": 0.0, "bound": 0.0, "composite": 0.0}
+    for shape, count in BN_CELL_LAYERS:
+        inp = bn_inputs(shape, seed=40, device=device)
+        pre = bn_composite(inp)[3]
+        dy = torch.where(pre.abs() > BN_BAND * pre.abs().max(), inp["dy"],
+                         torch.zeros((), device=device))
+        del pre
+        ref = bn_composite(inp, dy)
+        out = bn_op(inp, dy)
+        errs = bn_errors(out, ref)
+        del ref
+        again = bn_op(inp, dy)
+        same = all(torch.equal(a, b) for a, b in zip(
+            (out[0], *out[1].values(), *out[2]),
+            (again[0], *again[1].values(), *again[2])))
+        del out, again
+        args = [inp[k] for k in ("z", "b", "scale", "bias")]
+        fwd = timed_ms(lambda: bt.bn_relu_forward(
+            *args, inp["mean"], inp["var"], grouped=True), reps=5, repeats=3)
+        stats = bt.bn_relu_forward(*args, inp["mean"], inp["var"],
+                                   grouped=True)[1]
+        bwd = timed_ms(lambda: bt.bn_relu_backward(*args, stats, dy), reps=5,
+                       repeats=3)
+        # both under autograd from the same leaves (no copy of z timed)
+        leaves = _bn_leaves(inp)
+        inp_leaves = dict(inp, **dict(zip(("z", "b", "scale", "bias"),
+                                          leaves)))
+        op = timed_ms(lambda: bn_op(inp_leaves, dy), reps=5, repeats=3)
+        comp = timed_ms(lambda: bn_composite(inp_leaves, dy), reps=2,
+                        repeats=3)
+        t = inp["z"].numel() * 4 / PEAK_BYTES * 1e3
+        row = {"errors": errs, "bit_identical": same, "forward_ms": fwd,
+               "forward_bound_ms": 3 * t, "backward_ms": bwd,
+               "backward_bound_ms": 5 * t, "op_ms": op, "bound_ms": 8 * t,
+               "bound_share": 8 * t / op, "composite_ms": comp,
+               "layers": count}
+        rows[str(shape)] = row
+        total["op"] += count * op
+        total["bound"] += count * 8 * t
+        total["composite"] += count * comp
+        print(f"bn_train {shape} (x{count} a step): forward {fwd:.3f} ms "
+              f"(3T bound {3 * t:.3f}), backward {bwd:.3f} ms (5T bound "
+              f"{5 * t:.3f}); op under autograd {op:.3f} ms, "
+              f"{100 * 8 * t / op:.1f}% of its 8T bound {8 * t:.3f} ms; "
+              f"composite {comp:.3f} ms; errors " + ", ".join(
+                  f"{k} {v:.2e}" for k, v in errs.items())
+              + f" (tol {TOL_BN:g}); bit-identical twice: {same}")
+        expect(max(errs.values()) <= TOL_BN,
+               f"bn_train {shape}: the op disagrees with the composite")
+        expect(same, f"bn_train {shape}: two runs differ")
+        del inp, args, stats, dy, leaves, inp_leaves
+        torch.cuda.empty_cache()
+    print(f"bn_train, the step's 10 layers ({card_line()}): op "
+          f"{total['op']:.3f} ms, 8T bound {total['bound']:.3f} ms "
+          f"({100 * total['bound'] / total['op']:.1f}%), composite "
+          f"{total['composite']:.3f} ms")
+    rows["step"] = total
+
+    cfg = _flagship()
+    step_check(device, net.init_model(torch.Generator().manual_seed(0), cfg,
+                                      torch.device("cpu"))["ae"])
+    # seed 11 is tests/test_torch_port_cuda.py's joint step; on seed 2's
+    # fresh weights the generator's update reads 6.5e-2 with the op and
+    # without it alike: the joint step's conditioning (PERF.md §6)
+    for family, seed, check in (("variant", 1, variant_step_check),
+                                ("flagship", 11, joint_step_check)):
+        fcfg = cfg
+        if family == "variant":
+            import dataclasses
+            fcfg = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, autoencoder=dataclasses.replace(
+                    cfg.model.autoencoder, **VARIANT_TYPES)))
+        check(device, types.SimpleNamespace(
+            config=fcfg, td3=fcfg.td3_config(), preproc=fcfg.preproc_spec(),
+            model=net.init_model(torch.Generator().manual_seed(seed), fcfg,
+                                 device),
+            bidirectional=fcfg.loss.bidirectional,
+            bn_stats=fcfg.training.bn_stats,
+            recon_loss=fcfg.loss.reconstruction_loss))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -4228,6 +4433,7 @@ def main() -> None:
         data_path = phase_data(device, tmp)
         multi_path = phase_multi(device, cfg, tmp)
         # every time is taken before the first trace of the process
+        bn_rows = phase_bn(device)
         rows = phase_times(device, engine, engine_bf16, engine_q)
         rl_cases = phase_rl_times(device, trainer)
         joint_cases, joint_ms, joint_times = phase_joint_times(device,
@@ -4277,6 +4483,7 @@ def main() -> None:
     print(f"variant steps ({card_line()}): " + json.dumps(
         {**variant_rows, **{k: v for k, v in variant_ms.items()
                             if "complete" in k}}))
+    print("bn_train: " + json.dumps(bn_rows))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

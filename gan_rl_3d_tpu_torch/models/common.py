@@ -8,6 +8,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from gan_rl_3d_tpu_torch import nn
+from gan_rl_3d_tpu_torch.ops import bn_train
 from gan_rl_3d_tpu_torch.parallel import collectives
 from gan_rl_3d_tpu_torch.parallel import mesh as mesh_lib
 from gan_rl_3d_tpu_torch.utils.tree import tree_leaves
@@ -45,10 +46,17 @@ def bn_mlp_apply(params: list, state: list, x: Tensor, *,
                  ) -> Tuple[Tensor, list]:
     """Blocks with a 'bn' entry run Dense -> BN -> activation; a plain block
     (the final_plain block) runs Dense then ``final_activation`` if given
-    (common.py:48-71). Training BN takes its statistics by ``bn_stats``.
-    Returns (x, new state); eval mode returns the state it was given."""
+    (common.py:48-71). Training BN takes its statistics by ``bn_stats``;
+    a training block with the ReLU runs as ``bn_train.dense_bn_relu_train``
+    (one op over the kernels on the card). Returns (x, new state); eval
+    mode returns the state it was given."""
     new_state = []
     for p, s in zip(params, state):
+        if "bn" in p and training and activation is torch.relu:
+            x, bn_s = bn_train.dense_bn_relu_train(p["dense"], p["bn"],
+                                                   s["bn"], x, mode=bn_stats)
+            new_state.append({"bn": bn_s})
+            continue
         x = nn.dense(p["dense"], x)
         if "bn" in p:
             if training:

@@ -28,6 +28,7 @@ import torch
 
 from gan_rl_3d_tpu_torch import nn
 from gan_rl_3d_tpu_torch.models.common import bn_mlp_apply, bn_mlp_init
+from gan_rl_3d_tpu_torch.ops import bn_train
 
 Tensor = torch.Tensor
 
@@ -100,12 +101,13 @@ def adaptive_decoder_apply(params: dict, state: dict, gfv: Tensor, *,
     pts = torch.tanh(nn.dense(params["gen"], feats))
     pts = pts.reshape(pts.shape[0], max_points, 3)[:, :n, :]
     ref = params["refine"]
-    r = nn.dense(ref["conv1"], pts)
     if training:
-        r, bn_s = nn.batchnorm_train(ref["bn"], state["refine_bn"], r,
-                                     mode=bn_stats)
+        r, bn_s = bn_train.dense_bn_relu_train(ref["conv1"], ref["bn"],
+                                               state["refine_bn"], pts,
+                                               mode=bn_stats)
     else:
         bn_s = state["refine_bn"]
-        r = nn.batchnorm_eval(ref["bn"], bn_s, r)
-    r = nn.dense(ref["conv2"], torch.relu(r))
+        r = torch.relu(nn.batchnorm_eval(ref["bn"], bn_s,
+                                         nn.dense(ref["conv1"], pts)))
+    r = nn.dense(ref["conv2"], r)
     return pts + r, {"feature_mlp": feat_s, "refine_bn": bn_s}

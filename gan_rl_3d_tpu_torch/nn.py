@@ -136,6 +136,12 @@ BN_STATS_MODES = ("centered", "single_read_grouped")
 BN_GROUPS = 8
 
 
+def check_bn_stats(mode: str) -> None:
+    if mode not in BN_STATS_MODES:
+        raise ValueError(f"bn_stats must be one of {BN_STATS_MODES}, "
+                         f"got {mode!r}")
+
+
 def validate_bn_stats_mesh(bn_stats: str, data_shards: int,
                            segments: int = 1) -> None:
     """Refuse single_read_grouped where the data axis does not divide the
@@ -214,9 +220,7 @@ def batchnorm_train(params: dict, state: dict, x: Tensor, *,
     dtype, new state); the new state carries no gradient. Under a mesh
     the statistics and n are the whole data group's: the leading axis is
     then this rank's rows of the global batch."""
-    if mode not in BN_STATS_MODES:
-        raise ValueError(f"bn_stats must be one of {BN_STATS_MODES}, "
-                         f"got {mode!r}")
+    check_bn_stats(mode)
     tp = _sharded_mesh(params["scale"])
     if tp is not None:
         y, new_state = batchnorm_train(

@@ -28,7 +28,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("encoder_pool", "encoder_pool_bf16", "encoder_pool_int8",
-           "encoder_pool_int8_wide", "nn_dist", "nn_grad")
+           "encoder_pool_int8_wide", "nn_dist", "nn_grad", "bn_train")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
