@@ -11,6 +11,7 @@ does not know; keys only the JAX package reads are skipped in silence.
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import json
 import logging
@@ -33,6 +34,36 @@ class AutoencoderModelConfig:
     decoder_dims: Tuple[int, ...] = (256, 256, 6144)
     encoder_type: str = "pointnet"
     decoder_type: str = "mlp"
+    # the folding decoder ("folding", models.pcn): num_coarse coarse points
+    # and a grid_size x grid_size grid of half-width grid_scale about each,
+    # num_points = num_coarse * grid_size**2 fine points
+    num_coarse: int = 1024
+    grid_size: int = 4
+    grid_scale: float = 0.05
+    # > 0: the encoder's input is input_points rows drawn from each
+    # num_points-point target (PCN's partial input); 0: the target's rows
+    input_points: int = 0
+
+    def __post_init__(self):
+        if self.encoder_type not in ("pointnet", "attention", "pcn"):
+            raise ValueError(
+                f"autoencoder.encoder_type must be 'pointnet', 'attention' "
+                f"or 'pcn', got {self.encoder_type!r}")
+        if self.decoder_type not in ("mlp", "adaptive", "folding"):
+            raise ValueError(
+                f"autoencoder.decoder_type must be 'mlp', 'adaptive' or "
+                f"'folding', got {self.decoder_type!r}")
+        if self.decoder_type == "folding" and (
+                self.num_coarse < 1 or self.grid_size < 1
+                or self.num_coarse * self.grid_size ** 2 != self.num_points):
+            raise ValueError(
+                f"autoencoder.num_coarse * grid_size**2 must be num_points="
+                f"{self.num_points}, got {self.num_coarse} * "
+                f"{self.grid_size}**2")
+        if not 0 <= self.input_points <= self.num_points:
+            raise ValueError(
+                f"autoencoder.input_points must lie in [0, num_points="
+                f"{self.num_points}], got {self.input_points}")
 
 
 @dataclass(frozen=True)
@@ -65,16 +96,43 @@ class AETrainConfig:
     weight_decay: float = 1e-5
     scheduler_step: int = 30
     scheduler_gamma: float = 0.1
-    # "step": torch StepLR semantics; "cosine": cosine decay over the phase
+    # "step": torch StepLR semantics; "cosine": cosine decay over the phase;
+    # "staircase": max(lr * scheduler_gamma^(count // decay_steps),
+    # lr_floor) by update count (PCN's train.py)
     lr_schedule: str = "step"
+    decay_steps: int = 50000
+    lr_floor: float = 0.0
     # stage s of 3 trains with the hole bounds scaled by (s + 1) / 3
     hole_curriculum: bool = False
+    # the folding decoder's loss CD(coarse) + alpha * CD(fine): alpha is
+    # alpha_values[i] for an update count in (boundaries[i-1],
+    # boundaries[i]] (tf.train.piecewise_constant)
+    alpha_boundaries: Tuple[int, ...] = ()
+    alpha_values: Tuple[float, ...] = (1.0,)
 
     def __post_init__(self):
-        if self.lr_schedule not in ("step", "cosine"):
+        if self.lr_schedule not in ("step", "cosine", "staircase"):
             raise ValueError(
-                f"autoencoder.lr_schedule must be 'step' or 'cosine', "
-                f"got {self.lr_schedule!r}")
+                f"autoencoder.lr_schedule must be 'step', 'cosine' or "
+                f"'staircase', got {self.lr_schedule!r}")
+        if self.decay_steps < 1 or self.lr_floor < 0:
+            raise ValueError(
+                f"autoencoder.decay_steps must be >= 1 and lr_floor >= 0, "
+                f"got {self.decay_steps} and {self.lr_floor}")
+        b = self.alpha_boundaries
+        if (len(self.alpha_values) != len(b) + 1
+                or any(x >= y for x, y in zip(b, b[1:]))
+                or any(v < 0 for v in self.alpha_values)):
+            raise ValueError(
+                f"autoencoder.alpha_values must be one more than the "
+                f"increasing alpha_boundaries and >= 0, got {b} and "
+                f"{self.alpha_values}")
+
+    def alpha(self, count: int) -> float:
+        """The fine term's weight for the update after ``count``
+        updates."""
+        return self.alpha_values[bisect.bisect_left(self.alpha_boundaries,
+                                                    count)]
 
 
 @dataclass(frozen=True)
@@ -334,7 +392,7 @@ def flagship_config() -> Config:
 
 _TUPLE_FIELDS = {"encoder_dims", "decoder_dims", "generator_dims",
                  "discriminator_dims", "hidden_dims", "metrics",
-                 "fscore_thresholds"}
+                 "fscore_thresholds", "alpha_boundaries", "alpha_values"}
 # keys the JAX package reads and the port does not, skipped in silence as
 # the reference's redundant ``paths`` block is: the JAX device string (the
 # port's entry points take ``--device``)
@@ -396,6 +454,14 @@ def load_config(path: Optional[str] = None,
             f"model.rl_agent.action_dim ({c.model.rl_agent.action_dim}) "
             f"must equal model.lgan.z_dim ({c.model.lgan.z_dim}); set both "
             "when changing the latent action space")
+    d = c.data
+    if c.model.autoencoder.input_points and (
+            d.normalize or d.augmentation.rotation or d.augmentation.jitter
+            or d.augmentation.scale):
+        raise ValueError(
+            "model.autoencoder.input_points trains input and target in the "
+            "complete cloud's frame: set data.normalize false and every "
+            "data.augmentation flag false")
     return c
 
 

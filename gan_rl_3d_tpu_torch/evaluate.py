@@ -14,8 +14,10 @@ unfolded ``complete`` like the other; it has neither an engine nor a
 before the evaluation runs.
 
 Holes are cut by ``make_training_batch(do_augment=False)`` with draws from
-one generator seeded 123, batch after batch, so a run is repeatable; the
-padded rows of the last batch are left out of every mean.
+one generator seeded 123, batch after batch, so a run is repeatable (from
+``model.autoencoder.input_points`` rows of each cloud where the config
+sets it, PCN's input); the padded rows of the last batch are left out of
+every mean.
 """
 
 from __future__ import annotations
@@ -155,7 +157,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     for i, batch in enumerate(trainer.test_loader):
         complete_pc, incomplete, mask = pc_ops.make_training_batch(
             holes, torch.from_numpy(batch["complete_pc"]).to(device),
-            do_augment=False)
+            do_augment=False,
+            input_points=config.model.autoencoder.input_points or None)
         pred, metrics = batch_metrics(
             model, complete_pc, incomplete, mask, output=args.output,
             metrics=metric_names, eval_cfg=config.evaluation, **gate)

@@ -4,10 +4,12 @@
 Encoder point-MLP 3->[64,128,128,256,128] each +BN+ReLU, masked max over N,
 head 128->128 +BN+ReLU; decoder 128->256->256->6144 reshaped row-major to
 (B, 2048, 3). The attention encoder and the adaptive decoder
-(``models.variants``) are the other family; the tree tells them apart, as
-in the JAX package: an encoder with an ``"attention"`` subtree, a decoder
-with ``"feature_mlp"``. ``any_encoder_apply`` / ``any_decoder_apply`` run
-either family with ``training=`` and return the new BatchNorm state;
+(``models.variants``) are the second family, PCN's two-stage encoder and
+folding decoder (``models.pcn``) the third; the tree tells them apart, as
+in the JAX package: an encoder with an ``"attention"`` subtree (or PCN's
+``"stage1"``), a decoder with ``"feature_mlp"`` (or ``"folding"``: the
+fine cloud is the output). ``any_encoder_apply`` / ``any_decoder_apply``
+run any family with ``training=`` and return the new BatchNorm state;
 ``encoder_apply`` / ``decoder_apply`` are their eval-mode forms returning
 tensors (the serving path); ``autoencoder_apply`` goes through the
 dispatchers, as the JAX function does.
@@ -19,7 +21,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from gan_rl_3d_tpu_torch.models import variants
+from gan_rl_3d_tpu_torch.models import pcn, variants
 from gan_rl_3d_tpu_torch.models.common import bn_mlp_apply, bn_mlp_init
 
 Tensor = torch.Tensor
@@ -54,12 +56,19 @@ def autoencoder_init(generator: torch.Generator, input_dim: int = 3,
                      encoder_dims: Sequence[int] = ENCODER_DIMS,
                      decoder_dims: Sequence[int] = DECODER_DIMS,
                      encoder_type: str = "pointnet",
-                     decoder_type: str = "mlp") -> Tuple[dict, dict]:
+                     decoder_type: str = "mlp", *, num_coarse: int = 1024,
+                     grid_size: int = 4, grid_scale: float = 0.05
+                     ) -> Tuple[dict, dict]:
     """f32 params and BN state on the CPU, drawn from ``generator`` (encoder
     first); move them to a device with ``utils.tree.tree_map``. The
     adaptive decoder ignores ``decoder_dims`` and emits ``num_points``
-    points (autoencoder.py:134-169)."""
-    if encoder_type == "attention":
+    points (autoencoder.py:134-169). The folding decoder's coarse MLP is
+    ``decoder_dims`` and it emits ``num_coarse * grid_size**2`` points,
+    which must be ``num_points``."""
+    if encoder_type == "pcn":
+        enc_p, enc_s = pcn.pcn_encoder_init(generator, input_dim, latent_dim,
+                                            encoder_dims)
+    elif encoder_type == "attention":
         enc_p, enc_s = variants.attention_encoder_init(
             generator, input_dim, latent_dim, encoder_dims)
     elif encoder_type == "pointnet":
@@ -70,6 +79,14 @@ def autoencoder_init(generator: torch.Generator, input_dim: int = 3,
     if decoder_type == "adaptive":
         dec_p, dec_s = variants.adaptive_decoder_init(generator, latent_dim,
                                                       num_points)
+    elif decoder_type == "folding":
+        if num_coarse * grid_size ** 2 != num_points:
+            raise ValueError(f"the folding decoder emits num_coarse * "
+                             f"grid_size**2 = {num_coarse * grid_size ** 2} "
+                             f"points, not num_points={num_points}")
+        dec_p, dec_s = pcn.folding_decoder_init(
+            generator, latent_dim, num_coarse, grid_size, grid_scale,
+            decoder_dims)
     elif decoder_type == "mlp":
         dec_p, dec_s = decoder_init(generator, latent_dim, num_points,
                                     decoder_dims)
@@ -107,7 +124,9 @@ def any_encoder_apply(params: dict, state: dict, pc: Tensor,
                       mask: Optional[Tensor] = None, *,
                       training: bool = False, bn_stats: str = "centered"
                       ) -> Tuple[Tensor, dict]:
-    """(GFV, new state) of either encoder (autoencoder.py:115-122)."""
+    """(GFV, new state) of any encoder (autoencoder.py:115-122)."""
+    if pcn.is_pcn_encoder(params):
+        return pcn.pcn_encoder_apply(params, state, pc, mask)
     if "attention" in params:
         return variants.attention_encoder_apply(
             params, state, pc, mask, training=training, bn_stats=bn_stats)
@@ -117,7 +136,10 @@ def any_encoder_apply(params: dict, state: dict, pc: Tensor,
 def any_decoder_apply(params: dict, state: dict, gfv: Tensor, *,
                       training: bool = False, bn_stats: str = "centered"
                       ) -> Tuple[Tensor, dict]:
-    """(cloud, new state) of either decoder (autoencoder.py:125-131)."""
+    """(cloud, new state) of any decoder (autoencoder.py:125-131); the
+    folding decoder's cloud is its fine one."""
+    if pcn.is_folding(params):
+        return pcn.folding_decoder_apply(params, state, gfv)
     if "feature_mlp" in params:
         return variants.adaptive_decoder_apply(
             params, state, gfv, training=training, bn_stats=bn_stats)

@@ -92,16 +92,17 @@ def check_foldable(ae_params: dict) -> None:
     attention encoder's data-dependent pooling and the adaptive decoder's
     residual refinement do not (inference.py:99-108); ``complete`` serves
     them."""
-    if "attention" in ae_params["encoder"]:
+    if "point_mlp" not in ae_params["encoder"] \
+            or "attention" in ae_params["encoder"]:
         raise ValueError(
             "inference engine folding supports the pointnet encoder; the "
-            "attention variant's data-dependent pooling cannot fold - use "
-            "models.rl_gan_net.complete")
+            "attention variant's data-dependent pooling and PCN's two "
+            "stages cannot fold - use models.rl_gan_net.complete")
     if "mlp" not in ae_params["decoder"]:
         raise ValueError(
             "inference engine folding supports the MLP decoder; the "
-            "adaptive variant's residual refinement cannot fold - use "
-            "models.rl_gan_net.complete")
+            "adaptive variant's residual refinement and PCN's folding "
+            "cannot fold - use models.rl_gan_net.complete")
 
 
 @torch.no_grad()

@@ -43,7 +43,9 @@ def init_model(generator: torch.Generator, config,
     cfg = config.td3_config()
     ae_p, ae_s = ae.autoencoder_init(
         generator, a.input_dim, a.latent_dim, a.num_points, a.encoder_dims,
-        a.decoder_dims, a.encoder_type, a.decoder_type)
+        a.decoder_dims, a.encoder_type, a.decoder_type,
+        num_coarse=a.num_coarse, grid_size=a.grid_size,
+        grid_scale=a.grid_scale)
     lg_p, lg_s = lg.lgan_init(generator, g.z_dim, g.latent_dim,
                               g.generator_dims, g.discriminator_dims,
                               spectral_norm=g.spectral_norm)
@@ -211,11 +213,15 @@ class EnvState(NamedTuple):
 
 @torch.no_grad()
 def env_reset(model: dict, incomplete_pc: Tensor, complete_pc: Tensor,
-              mask: Optional[Tensor] = None) -> EnvState:
-    """(rl_gan_net.py:284-292)"""
+              mask: Optional[Tensor] = None, *,
+              target_input: Optional[Tensor] = None) -> EnvState:
+    """(rl_gan_net.py:284-292) The target GFV encodes ``target_input``
+    (the rows of the complete cloud the encoder sees, PCN's subsample:
+    ``ops.pointcloud.input_rows``), ``complete_pc`` without it."""
     return EnvState(state=encode(model, incomplete_pc, mask),
                     target_pc=complete_pc,
-                    target_gfv=encode(model, complete_pc))
+                    target_gfv=encode(model, complete_pc if target_input
+                                      is None else target_input))
 
 
 @torch.no_grad()

@@ -99,11 +99,16 @@ def apply_normalization(pc: Tensor, mask: Optional[Tensor] = None, *,
 def draw_training_batch(generator: torch.Generator, bsz: int, n: int, *,
                         spec: PreprocSpec = DEFAULT_PREPROC,
                         augment: bool = True,
-                        methods: Sequence[str] = HOLE_METHODS
+                        methods: Sequence[str] = HOLE_METHODS,
+                        input_points: Optional[int] = None
                         ) -> Dict[str, Tensor]:
     """Every random number one batch of ``make_training_batch`` uses, drawn
-    from ``generator`` on its device:
+    from ``generator`` on its device, in this order:
 
+    with ``input_points`` (PCN's input, drawn from an N-point target):
+    ``subsample`` (B, N) U[0, 1), whose ``input_points`` lowest scores
+    pick the input's rows; the hole draws below are then over those rows
+    (N = ``input_points``), and nothing is drawn for augmentation;
     hole cutting (pointcloud.py:237-258): ``ratio`` (B,) U[hole_min,
     hole_max), ``method`` (B,) index into ``methods``, ``rand_scores``
     (B, N) U[0, 1), ``center`` (B,) index of the sphere centre, ``normal``
@@ -118,14 +123,21 @@ def draw_training_batch(generator: torch.Generator, bsz: int, n: int, *,
     def uniform(*shape):
         return torch.rand(shape, **kw)
 
-    draws = {
+    draws = {}
+    if input_points is not None:
+        if not 1 <= input_points <= n:
+            raise ValueError(f"input_points must lie in [1, {n}], got "
+                             f"{input_points}")
+        draws["subsample"] = uniform(bsz, n)
+        n, augment = input_points, False
+    draws.update({
         "ratio": spec.hole_min + (spec.hole_max - spec.hole_min)
         * uniform(bsz),
         "method": torch.randint(0, len(methods), (bsz,), **kw),
         "rand_scores": uniform(bsz, n),
         "center": torch.randint(0, n, (bsz,), **kw),
         "normal": torch.randn((bsz, 3), **kw),
-    }
+    })
     if augment:
         draws.update(triggers=uniform(bsz, 3),
                      angles=(2.0 * math.pi) * uniform(bsz, 3),
@@ -244,6 +256,18 @@ def cut_holes(pc: Tensor, draws: Dict[str, Tensor], *,
     return _keep_reorder(pc, score, n_keep, fill_passes_for(n, max_ratio))
 
 
+def input_rows(complete: Tensor, draws: Dict[str, Tensor]) -> Tensor:
+    """The rows the encoder sees of a whole cloud: with a ``subsample``
+    (PCN's input) the ``input_points`` rows it picks, in a stable sort of
+    its scores, before any hole is cut; otherwise ``complete`` itself.
+    The clean GFV of a cloud encodes these rows."""
+    if "subsample" not in draws:
+        return complete
+    rows = torch.sort(draws["subsample"], dim=-1, stable=True).indices[
+        :, :draws["rand_scores"].shape[1]]
+    return complete.gather(1, rows[..., None].expand(-1, -1, 3))
+
+
 def apply_training_batch(complete: Tensor, draws: Dict[str, Tensor], *,
                          spec: PreprocSpec = DEFAULT_PREPROC,
                          do_augment: bool = True,
@@ -252,7 +276,15 @@ def apply_training_batch(complete: Tensor, draws: Dict[str, Tensor], *,
     """Cut holes, augment the complete and the incomplete cloud with the
     same draws (one augmentation key, pointcloud.py:286-290: the same
     triggers, rotation, jitter noise and scale), normalise per ``spec``.
+    Draws with a ``subsample`` (PCN's input) cut the holes from the
+    subsampled rows, in a stable sort of its scores, and leave both clouds
+    in the complete cloud's frame: no augmentation, no normalisation.
     Returns (complete, incomplete, incomplete_mask)."""
+    if "subsample" in draws:
+        incomplete, mask = cut_holes(input_rows(complete, draws), draws,
+                                     min_ratio=spec.hole_min,
+                                     max_ratio=spec.hole_max, methods=methods)
+        return complete, incomplete, mask
     incomplete, mask = cut_holes(complete, draws, min_ratio=spec.hole_min,
                                  max_ratio=spec.hole_max, methods=methods)
     if do_augment:
@@ -265,13 +297,15 @@ def apply_training_batch(complete: Tensor, draws: Dict[str, Tensor], *,
 
 def make_training_batch(generator: torch.Generator, complete: Tensor, *,
                         spec: PreprocSpec = DEFAULT_PREPROC,
-                        do_augment: bool = True
+                        do_augment: bool = True,
+                        input_points: Optional[int] = None
                         ) -> Tuple[Tensor, Tensor, Tensor]:
     """Draw from ``generator`` and apply: complete (B, N, 3) ->
-    (complete, incomplete, incomplete_mask)."""
+    (complete, incomplete, incomplete_mask); with ``input_points`` the
+    incomplete cloud is cut from that many rows of each (PCN's input)."""
     draws = draw_training_batch(generator, complete.shape[0],
                                 complete.shape[1], spec=spec,
-                                augment=do_augment)
+                                augment=do_augment, input_points=input_points)
     return apply_training_batch(complete, draws, spec=spec,
                                 do_augment=do_augment)
 

@@ -34,7 +34,7 @@ ring every rank holds whole and runs the TD3 update replicated.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -42,6 +42,7 @@ from gan_rl_3d_tpu_torch.config import (AETrainConfig, JointTrainConfig,
                                         LGANTrainConfig)
 from gan_rl_3d_tpu_torch.models import autoencoder as ae
 from gan_rl_3d_tpu_torch.models import latent_gan as lg
+from gan_rl_3d_tpu_torch.models import pcn
 from gan_rl_3d_tpu_torch.models import rl_agent as rl
 from gan_rl_3d_tpu_torch.models import rl_gan_net as net
 from gan_rl_3d_tpu_torch.models.common import grad_step
@@ -141,6 +142,32 @@ def _recon_loss(recon: Tensor, complete: Tensor, *, recon_loss: str,
                                     bidirectional=bidirectional)
 
 
+def _decode_train(params: dict, state: dict, gfv: Tensor, bn_stats: str
+                  ) -> Tuple[Tensor, Optional[Tensor], dict]:
+    """(cloud, coarse cloud or None, new state) of a decoder in training
+    mode: the folding decoder's fine and coarse clouds (its state, the
+    grid, unchanged), any other decoder's cloud and None."""
+    if pcn.is_folding(params):
+        coarse, fine = pcn.folding_decoder_outputs(params, state, gfv)
+        return fine, coarse, state
+    recon, new_state = ae.any_decoder_apply(params, state, gfv,
+                                            training=True, bn_stats=bn_stats)
+    return recon, None, new_state
+
+
+def _recon_terms(recon: Tensor, coarse: Optional[Tensor], complete: Tensor,
+                 fine_weight: float, *, recon_loss: str, bidirectional: bool
+                 ) -> Tensor:
+    """The per-sample reconstruction loss; with a coarse cloud PCN's
+    loss(coarse) + fine_weight * loss(recon)."""
+    per = _recon_loss(recon, complete, recon_loss=recon_loss,
+                      bidirectional=bidirectional)
+    if coarse is None:
+        return per
+    return _recon_loss(coarse, complete, recon_loss=recon_loss,
+                       bidirectional=bidirectional) + fine_weight * per
+
+
 def make_ae_optimizer(params: dict, cfg: AETrainConfig, steps_per_epoch: int
                       ) -> Tuple[torch.optim.Adam,
                                  torch.optim.lr_scheduler.LambdaLR]:
@@ -149,7 +176,9 @@ def make_ae_optimizer(params: dict, cfg: AETrainConfig, steps_per_epoch: int
     builds them), and a per-step schedule: call ``scheduler.step()`` after
     every ``optimizer.step()``. "step": lr * gamma^((count // spe) //
     scheduler_step); "cosine": optax's cosine decay to 0 over epochs * spe
-    updates. ``count`` is the number of updates before this one, 0 at the
+    updates; "staircase": max(lr * gamma^(count // decay_steps), lr_floor)
+    (tf.train.exponential_decay with staircase, then PCN's clip).
+    ``count`` is the number of updates before this one, 0 at the
     first (steps.py:65-84). The span ``setup.optimizer`` times it: the
     process's first ``torch.optim`` optimizer imports ``torch._dynamo``."""
     with span("setup.optimizer"):
@@ -162,6 +191,10 @@ def make_ae_optimizer(params: dict, cfg: AETrainConfig, steps_per_epoch: int
             def factor(count):
                 return 0.5 * (1.0 + math.cos(math.pi * min(count, decay)
                                              / decay))
+        elif cfg.lr_schedule == "staircase":
+            def factor(count):
+                return max(cfg.scheduler_gamma ** (count // cfg.decay_steps),
+                           cfg.lr_floor / cfg.lr)
         else:
             def factor(count):
                 return cfg.scheduler_gamma ** ((count // spe)
@@ -207,6 +240,7 @@ def ae_train_step(params: dict, bn_state: dict, optimizer: torch.optim.Adam,
                   spec: pc_ops.PreprocSpec = pc_ops.DEFAULT_PREPROC,
                   recon_loss: str = "chamfer", bidirectional: bool = True,
                   selective: bool = False, bn_stats: str = "centered",
+                  alpha: Optional[Callable[[int], float]] = None,
                   mesh: Optional[mesh_lib.Mesh] = None
                   ) -> Tuple[dict, Dict[str, Tensor]]:
     """One AE step (steps.py:124-166): hole cutting and augmentation ->
@@ -215,7 +249,10 @@ def ae_train_step(params: dict, bn_state: dict, optimizer: torch.optim.Adam,
     is (B, N, 3). Updates ``params`` in place; returns (new BN state,
     {"loss": 0-d tensor}). ``compute_dtype=torch.bfloat16`` rounds the
     matmul operands and activations to bf16 (f32 master weights, BN
-    statistics and loss). Under ``mesh`` the batch is this rank's rows
+    statistics and loss). The folding decoder's loss is PCN's,
+    CD(coarse, complete) + alpha(count) CD(fine, complete), with
+    ``count`` the updates before this one (the scheduler's count; alpha
+    1 without ``alpha``). Under ``mesh`` the batch is this rank's rows
     and ``draws`` the global batch's."""
     with mesh_lib.use(mesh):
         return _ae_train_step(params, bn_state, optimizer, batch,
@@ -223,16 +260,18 @@ def ae_train_step(params: dict, bn_state: dict, optimizer: torch.optim.Adam,
                               augment=augment, compute_dtype=compute_dtype,
                               spec=spec, recon_loss=recon_loss,
                               bidirectional=bidirectional,
-                              selective=selective, bn_stats=bn_stats)
+                              selective=selective, bn_stats=bn_stats,
+                              alpha=alpha)
 
 
 def _ae_train_step(params, bn_state, optimizer, batch, draws, *, scheduler,
                    augment, compute_dtype, spec, recon_loss, bidirectional,
-                   selective, bn_stats):
+                   selective, bn_stats, alpha):
     """The step in spans (``utils.profiling``): ae.preprocess, ae.encoder,
-    ae.decoder, ae.chamfer, ae.backward (its device time split back onto
-    the chamfer, decoder and encoder at the gradients of ``recon`` and
-    ``gfv``) and ae.optimizer."""
+    ae.decoder (with ae.folding inside it for the folding decoder),
+    ae.chamfer, ae.backward (its device time split back onto the chamfer,
+    the folding, the decoder and the encoder at the gradients of
+    ``recon``, ``coarse`` and ``gfv``) and ae.optimizer."""
     with span("ae.preprocess"):
         complete, incomplete, mask = pc_ops.apply_training_batch(
             batch["complete_pc"], draws, spec=spec, do_augment=augment)
@@ -248,17 +287,21 @@ def _ae_train_step(params, bn_state, optimizer, batch, draws, *, scheduler,
             p["encoder"], bn_state["encoder"], x_in, mask, training=True,
             bn_stats=bn_stats)
     with span("ae.decoder"):
-        recon, dec_state = ae.any_decoder_apply(
-            p["decoder"], bn_state["decoder"], gfv, training=True,
-            bn_stats=bn_stats)
+        recon, coarse, dec_state = _decode_train(
+            p["decoder"], bn_state["decoder"], gfv, bn_stats)
     with span("ae.chamfer"):
-        per = _recon_loss(recon, complete, recon_loss=recon_loss,
-                          bidirectional=bidirectional)
+        weight = 1.0 if alpha is None or coarse is None else alpha(
+            scheduler.last_epoch if scheduler is not None else 0)
+        per = _recon_terms(recon, coarse, complete, weight,
+                           recon_loss=recon_loss, bidirectional=bidirectional)
+        bounds = ((("ae.chamfer", recon), ("ae.decoder", gfv))
+                  if coarse is None else
+                  (("ae.chamfer", recon), ("ae.folding", coarse),
+                   ("ae.decoder", gfv)))
         loss = _masked_mean(per, batch["pad"])
         _check_finite(loss, "AE loss")
     with span("ae.backward"):
-        with backward_spans((("ae.chamfer", recon), ("ae.decoder", gfv)),
-                            "ae.encoder"):
+        with backward_spans(bounds, "ae.encoder"):
             loss.backward()
         _sync_grads(optimizer)
     with span("ae.optimizer"):
@@ -294,22 +337,25 @@ def ae_train_epoch(params: dict, bn_state: dict, optimizer, scheduler,
                    spec: pc_ops.PreprocSpec = pc_ops.DEFAULT_PREPROC,
                    data_sharded: bool = False,
                    mesh: Optional[mesh_lib.Mesh] = None,
+                   input_points: Optional[int] = None,
                    **step_kw) -> Tuple[dict, Dict[str, Tensor]]:
     """One epoch over a device-resident train split (the Python-loop form
     of ae_train_epoch_resident, steps.py:282-330): ``data`` (D, N, 3) on
     the device, ``order`` (S, B) row indices and ``pads`` (S, B). Each step
     gathers its batch on the device and draws its transforms from
-    ``generator``. Returns (BN state, {"losses": (S,) tensor}). Under
-    ``mesh`` the plan is the global one and each rank takes its slots;
-    with ``data_sharded`` ``data`` is this rank's row block
-    (``mesh.row_sharding``)."""
+    ``generator`` (``draw_training_batch``; with ``input_points`` the
+    input is that many rows of each target, PCN's). Returns (BN state,
+    {"losses": (S,) tensor}). Under ``mesh`` the plan is the global one
+    and each rank takes its slots; with ``data_sharded`` ``data`` is this
+    rank's row block (``mesh.row_sharding``)."""
     losses = []
     for idx, pad in zip(order, pads):
         with span("ae.step"):
             with span("ae.batch"):
                 # the global batch's draws; the step keeps this rank's rows
-                draws = pc_ops.draw_training_batch(generator, idx.shape[0],
-                                                   data.shape[1], spec=spec)
+                draws = pc_ops.draw_training_batch(
+                    generator, idx.shape[0], data.shape[1], spec=spec,
+                    input_points=input_points)
                 with mesh_lib.use(mesh):
                     complete = _resident_batch(data, _local(idx),
                                                data_sharded)
@@ -336,16 +382,19 @@ def gfv_extract_step(params: dict, bn_state: dict, batch: Dict[str, Tensor],
                      ) -> Tuple[Tensor, Tensor]:
     """(clean GFV, noisy GFV) of one batch with the frozen eval-mode
     encoder; holes from ``draws`` (draw_training_batch with
-    augment=False), no augmentation (steps.py:339-352). Under ``mesh``
+    augment=False), no augmentation (steps.py:339-352). With PCN's
+    ``subsample`` draws the clean GFV encodes the input's rows before the
+    hole (``pc_ops.input_rows``). Under ``mesh``
     each rank encodes its rows and the GFVs are gathered whole."""
     with mesh_lib.use(mesh):
         complete, incomplete, mask = pc_ops.apply_training_batch(
             batch["complete_pc"], _local(draws), spec=spec,
             do_augment=False)
         enc_p, enc_s = params["encoder"], bn_state["encoder"]
+        clean_in = pc_ops.input_rows(complete, _local(draws))
         mesh = mesh_lib.active()
         return (collectives.gather_rows(
-                    ae.any_encoder_apply(enc_p, enc_s, complete)[0], mesh),
+                    ae.any_encoder_apply(enc_p, enc_s, clean_in)[0], mesh),
                 collectives.gather_rows(
                     ae.any_encoder_apply(enc_p, enc_s, incomplete, mask)[0],
                     mesh))
@@ -510,10 +559,12 @@ def lgan_d_refresh(lgan_params: dict, lgan_state: dict,
 def draw_rl_step(generator: torch.Generator, bsz: int, n: int, *,
                  cfg: rl.TD3Config, buffer_size: int,
                  steps_per_episode: int = 1, updates_per_step: int = 1,
-                 spec: pc_ops.PreprocSpec = pc_ops.DEFAULT_PREPROC
+                 spec: pc_ops.PreprocSpec = pc_ops.DEFAULT_PREPROC,
+                 input_points: Optional[int] = None
                  ) -> Dict[str, object]:
     """The draws of one ``rl_step`` over ``bsz`` environments: ``holes``
-    (draw_training_batch without augmentation), ``ou`` (S, B, action_dim)
+    (draw_training_batch without augmentation, with ``input_points`` if
+    given), ``ou`` (S, B, action_dim)
     standard normals, one per environment step; per TD3 update ``sample``
     (U, batch_size) buffer rows uniform over the ``buffer_size`` valid
     rows after this step's push, and ``noise`` (U, batch_size,
@@ -522,7 +573,8 @@ def draw_rl_step(generator: torch.Generator, bsz: int, n: int, *,
     u = updates_per_step
     return {
         "holes": pc_ops.draw_training_batch(generator, bsz, n, spec=spec,
-                                            augment=False),
+                                            augment=False,
+                                            input_points=input_points),
         "ou": torch.randn((steps_per_episode, bsz, cfg.action_dim), **kw),
         "sample": torch.randint(0, max(buffer_size, 1),
                                 (u, cfg.batch_size), **kw),
@@ -552,11 +604,12 @@ def rl_step(model: dict, buffer: ReplayBuffer, ou_states: Tensor,
     single-device ring's rows, and the TD3 updates, drawn alike, run
     replicated on every rank; the OU state comes back whole."""
     with torch.no_grad(), mesh_lib.use(mesh):
+        holes = _local(draws["holes"])
         complete, incomplete, mask = pc_ops.apply_training_batch(
-            batch["complete_pc"], _local(draws["holes"]), spec=spec,
-            do_augment=False)
+            batch["complete_pc"], holes, spec=spec, do_augment=False)
         ou_normal = mesh_lib.local_rows(mesh, draws["ou"], axis=1)
-        env = net.env_reset(model, incomplete, complete, mask)
+        env = net.env_reset(model, incomplete, complete, mask,
+                            target_input=pc_ops.input_rows(complete, holes))
         ou, transitions, rewards = _local(ou_states), [], []
         for i in range(steps_per_episode):
             action, ou = rl.select_action(model["agent"], env.state, cfg,
@@ -603,10 +656,11 @@ def rl_eval_reward(model: dict, batch: Dict[str, Tensor],
     """Greedy single-step reward and Chamfer distance of the completions on
     a fixed batch with fixed holes ``draws`` (steps.py:651-685)."""
     with mesh_lib.use(mesh):
+        holes = _local(draws)
         complete, incomplete, mask = pc_ops.apply_training_batch(
-            batch["complete_pc"], _local(draws), spec=spec,
-            do_augment=False)
-        env0 = net.env_reset(model, incomplete, complete, mask)
+            batch["complete_pc"], holes, spec=spec, do_augment=False)
+        env0 = net.env_reset(model, incomplete, complete, mask,
+                             target_input=pc_ops.input_rows(complete, holes))
         action, _ = rl.select_action(model["agent"], env0.state, cfg)
         _, rewards, _, info = net.env_step(
             model, env0, action, w_chamfer=w_chamfer, w_gfv=w_gfv,
@@ -648,6 +702,7 @@ def joint_train_step(model: dict, optimizer: torch.optim.Optimizer,
                      bidirectional: bool = True, w_ae_recon: float = 0.0,
                      selective: bool = False, bn_stats: str = "centered",
                      freeze_generator: bool = False,
+                     fine_weight: float = 1.0,
                      mesh: Optional[mesh_lib.Mesh] = None
                      ) -> Tuple[dict, Dict[str, Tensor]]:
     """One joint fine-tune step (steps.py:695-809): holes with
@@ -657,7 +712,10 @@ def joint_train_step(model: dict, optimizer: torch.optim.Optimizer,
     Chamfer(decode(G(z)), complete) + 0.1 * MSE(clean GFV, noisy GFV),
     whose MSE gradient reaches both GFVs. With ``w_ae_recon`` > 0 both GFVs
     go through one (2B, .) decoder pass and w * Chamfer(decode(noisy GFV),
-    complete) joins the loss. ``optimizer`` holds the trainable leaves
+    complete) joins the loss. The folding decoder's Chamfer terms are
+    PCN's, Chamfer(coarse) + ``fine_weight`` * Chamfer(fine), and its
+    input PCN's (``subsample`` draws). ``optimizer`` holds the trainable
+    leaves
     (``joint_trainable``) and updates them in place. Returns (the model
     with the new BN states of the encoder, decoder and generator, {"loss",
     "chamfer", "gfv"}); a frozen G keeps its parameters and state. Under
@@ -670,12 +728,12 @@ def joint_train_step(model: dict, optimizer: torch.optim.Optimizer,
             compute_dtype=compute_dtype, spec=spec,
             bidirectional=bidirectional, w_ae_recon=w_ae_recon,
             selective=selective, bn_stats=bn_stats,
-            freeze_generator=freeze_generator)
+            freeze_generator=freeze_generator, fine_weight=fine_weight)
 
 
 def _joint_train_step(model, optimizer, batch, draws, *, cfg, compute_dtype,
                       spec, bidirectional, w_ae_recon, selective, bn_stats,
-                      freeze_generator):
+                      freeze_generator, fine_weight):
     complete, incomplete, mask = pc_ops.apply_training_batch(
         batch["complete_pc"], draws, spec=spec, do_augment=True)
     ae_p = model["ae"]["params"]
@@ -702,22 +760,26 @@ def _joint_train_step(model, optimizer, batch, draws, *, cfg, compute_dtype,
     if w_ae_recon > 0.0:
         bsz = clean_gfv.shape[0]
         with mesh_lib.segments(2):
-            both, dec_s = ae.any_decoder_apply(
+            both, both_coarse, dec_s = _decode_train(
                 ae_p["decoder"], ae_s["decoder"],
-                torch.cat([clean_gfv, noisy_gfv], dim=0), training=True,
-                bn_stats=bn_stats)
+                torch.cat([clean_gfv, noisy_gfv], dim=0), bn_stats)
         completed, ae_recon = both[:bsz], both[bsz:]
+        coarse, ae_coarse = ((None, None) if both_coarse is None else
+                             (both_coarse[:bsz], both_coarse[bsz:]))
     else:
-        completed, dec_s = ae.any_decoder_apply(
-            ae_p["decoder"], ae_s["decoder"], clean_gfv, training=True,
-            bn_stats=bn_stats)
-    ch = _masked_mean(chamfer.chamfer_distance(
-        completed, complete, bidirectional=bidirectional), batch["pad"])
+        completed, coarse, dec_s = _decode_train(
+            ae_p["decoder"], ae_s["decoder"], clean_gfv, bn_stats)
+
+    def recon_term(recon, recon_coarse):
+        return _masked_mean(_recon_terms(
+            recon, recon_coarse, complete, fine_weight, recon_loss="chamfer",
+            bidirectional=bidirectional), batch["pad"])
+
+    ch = recon_term(completed, coarse)
     gl = _share(losses_ops.gfv_loss(clean_gfv, noisy_gfv))
     loss = ch + 0.1 * gl
     if w_ae_recon > 0.0:
-        loss = loss + w_ae_recon * _masked_mean(chamfer.chamfer_distance(
-            ae_recon, complete, bidirectional=bidirectional), batch["pad"])
+        loss = loss + w_ae_recon * recon_term(ae_recon, ae_coarse)
     _check_finite(loss, "joint loss")
     loss.backward()
     _sync_grads(optimizer)
@@ -740,16 +802,19 @@ def joint_train_epoch(model: dict, optimizer: torch.optim.Optimizer,
                       spec: pc_ops.PreprocSpec = pc_ops.DEFAULT_PREPROC,
                       data_sharded: bool = False,
                       mesh: Optional[mesh_lib.Mesh] = None,
+                      input_points: Optional[int] = None,
                       **step_kw) -> Tuple[dict, Dict[str, Tensor]]:
     """One joint epoch over a device-resident train split (the loop form
     of joint_train_epoch_resident, steps.py:812-857), as ae_train_epoch:
     each step gathers its batch on the device and draws its transforms
-    from ``generator``. Returns (model, {"losses": (S,) tensor})."""
+    from ``generator`` (with ``input_points``, PCN's input). Returns
+    (model, {"losses": (S,) tensor})."""
     losses = []
     for idx, pad in zip(order, pads):
         # the global batch's draws; the step keeps this rank's rows
         draws = pc_ops.draw_training_batch(generator, idx.shape[0],
-                                           data.shape[1], spec=spec)
+                                           data.shape[1], spec=spec,
+                                           input_points=input_points)
         with mesh_lib.use(mesh):
             complete = _resident_batch(data, _local(idx), data_sharded)
         model, m = joint_train_step(

@@ -16,10 +16,13 @@ K3, with a greedy eval on a fixed, evenly spread validation batch. Phase
 5.5 (``post_joint_refresh``) retrains D on the post-joint GFVs and
 calibrates the gate on the val split, writing ``gate_calibration.json``.
 ``train_full_pipeline`` runs the curriculum, restarting at the phase a
-loaded checkpoint records, and ends with ``final``. Either model family
-(the PointNet encoder and MLP decoder, or the attention encoder and
-adaptive decoder of ``model.autoencoder.{encoder,decoder}_type``) runs
-through every phase. Each phase writes its scalars with the JAX trainer's
+loaded checkpoint records, and ends with ``final``. Each model family
+(the PointNet encoder and MLP decoder, the attention encoder and adaptive
+decoder, or PCN's two-stage encoder and folding decoder, of
+``model.autoencoder.{encoder,decoder}_type``) runs through every phase;
+with ``model.autoencoder.input_points`` (PCN) every phase's encoder input
+is that many rows drawn from each target, and a clean GFV encodes them
+before the hole is cut. Each phase writes its scalars with the JAX trainer's
 tags and steps (AE/*, GAN/*, RL/*, Joint/*) to ``metrics.jsonl`` under
 ``training.log_dir`` (``utils.metrics_logging``); ``close()`` closes the
 log.
@@ -131,6 +134,8 @@ class RLGANNetTrainer:
             cfg.training.precision)
         self.bn_stats = cfg.training.bn_stats
         self.td3 = cfg.td3_config()
+        # PCN's input: this many rows drawn from each target
+        self.input_points = cfg.model.autoencoder.input_points or None
 
         self._setup_data()
 
@@ -187,7 +192,8 @@ class RLGANNetTrainer:
         data_dir = Path(cfg.data.data_dir)
         if not data_dir.exists():
             _print(f"Dataset not found at {data_dir}; creating synthetic data")
-            setup_dataset(str(data_dir), synthetic=True)
+            setup_dataset(str(data_dir), synthetic=True,
+                          num_points=cfg.model.autoencoder.num_points)
         fractions = None
         if not (data_dir / "train").exists():
             fractions = (cfg.data.train_split, cfg.data.val_split,
@@ -280,7 +286,8 @@ class RLGANNetTrainer:
                 spec=self._ae_train_spec(epoch, num_epochs),
                 compute_dtype=self.compute_dtype,
                 selective=self.precision_selective, bn_stats=self.bn_stats,
-                recon_loss=self.recon_loss, bidirectional=self.bidirectional)
+                recon_loss=self.recon_loss, bidirectional=self.bidirectional,
+                input_points=self.input_points, alpha=cfg.alpha)
             losses = m["losses"].cpu().numpy()
             self.train_losses.extend(losses.tolist())
             for i, loss in enumerate(losses):
@@ -335,7 +342,8 @@ class RLGANNetTrainer:
         return pc_ops.draw_training_batch(
             torch.Generator(self.device).manual_seed(
                 fixed_holes_seed(stream, i)),
-            bsz, n, spec=self.preproc, augment=False)
+            bsz, n, spec=self.preproc, augment=False,
+            input_points=self.input_points)
 
     def _validate_ae(self, params, bn_state) -> float:
         """Mean eval loss over the val split, batch i's holes fixed
@@ -367,7 +375,8 @@ class RLGANNetTrainer:
         for batch in self.train_loader:
             bsz, n = batch["complete_pc"].shape[:2]
             draws = pc_ops.draw_training_batch(gen, bsz, n, spec=self.preproc,
-                                               augment=False)
+                                               augment=False,
+                                               input_points=self.input_points)
             clean, noisy = steps.gfv_extract_step(
                 ae_m["params"], ae_m["state"],
                 self._put({"complete_pc": batch["complete_pc"]}), draws,
@@ -498,7 +507,8 @@ class RLGANNetTrainer:
         pad = (np.arange(n_eval) >= n_real).astype(np.float32)
         draws = pc_ops.draw_training_batch(
             torch.Generator(self.device).manual_seed(EVAL_HOLES_SEED),
-            n_eval, val.shape[1], spec=self.preproc, augment=False)
+            n_eval, val.shape[1], spec=self.preproc, augment=False,
+            input_points=self.input_points)
         return self._put({"complete_pc": val[idx], "pad": pad}), draws
 
     def train_rl_agent(self, num_episodes: Optional[int] = None) -> float:
@@ -562,7 +572,7 @@ class RLGANNetTrainer:
                 buffer_size=min(buffer.size + envs * n_steps,
                                 buffer.capacity),
                 steps_per_episode=n_steps, updates_per_step=updates,
-                spec=self.preproc)
+                spec=self.preproc, input_points=self.input_points)
             self.model, buffer, ou, m = steps.rl_step(
                 self.model, buffer, ou, batch, draws, cfg=self.td3,
                 start_training_size=cfg.start_training_steps,
@@ -647,7 +657,10 @@ class RLGANNetTrainer:
             cfg=self.td3, compute_dtype=self.compute_dtype, spec=self.preproc,
             bidirectional=self.bidirectional, w_ae_recon=cfg.w_ae_recon,
             selective=self.precision_selective, bn_stats=self.bn_stats,
-            freeze_generator=cfg.freeze_generator)
+            freeze_generator=cfg.freeze_generator,
+            # the folding decoder's fine term at the alpha schedule's end
+            fine_weight=self.config.training.autoencoder.alpha_values[-1],
+            input_points=self.input_points)
         data, data_sharded = self._resident_train_data()
         for epoch in range(start_epoch, num_epochs):
             t0 = time.time()

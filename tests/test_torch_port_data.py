@@ -316,7 +316,7 @@ def test_fixed_hole_streams_differ():
     holes for every batch; the CPU generator keeps only a seed's low 32
     bits, so streams seeded apart only above them would coincide."""
     fake = SimpleNamespace(device=torch.device("cpu"),
-                           preproc=tpc.DEFAULT_PREPROC)
+                           preproc=tpc.DEFAULT_PREPROC, input_points=None)
     streams = (ttrainer.AE_VAL_HOLES, ttrainer.JOINT_VAL_HOLES,
                ttrainer.GATE_HOLES)
     draws = {(s, i): ttrainer.RLGANNetTrainer._fixed_holes(fake, s, i, 4, 64)

@@ -352,6 +352,13 @@ def test_training_config_matches_jax(source):
     for k, v in jcfg.dataclasses.asdict(p.training).items():
         if k == "rl_agent":
             assert v["exploration_noise"] == jt[k]["exploration_noise"]
+        elif k == "autoencoder":
+            # the port's PCN recipe fields (staircase, alpha) have no JAX
+            # counterpart
+            assert set(v) - set(jt[k]) == {"decay_steps", "lr_floor",
+                                           "alpha_boundaries",
+                                           "alpha_values"}
+            assert {kk: v[kk] for kk in jt[k]} == jt[k], k
         else:
             assert v == jt[k], k
     for section in ("loss", "data", "evaluation", "logging"):
