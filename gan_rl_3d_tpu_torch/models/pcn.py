@@ -14,8 +14,11 @@ but the last of a stack.
   grid is ``meshgrid(linspace(-scale, scale, s), same)`` in TF's ``xy``
   order, ``grid[i s + j] = (t[j], t[i])``, kept in the decoder's state.
 
-The folding input is built whole, as published (concatenation, then the
-dense layer); the decoder's forward folding runs in the span
+The folding's first layer is the published dense layer over
+``[grid[j], coarse[c], v]``, computed from the products its rows share
+(``_folding_hidden``): the grid's once a call, the GFV's once a cloud,
+the coarse point's once, and their broadcast sum; the 1,029-wide input is
+never built. The decoder's forward folding runs in the span
 ``ae.folding``. Weights are Glorot-uniform with zero biases (the defaults
 of the tf.contrib layers PCN uses), drawn from ``generator`` in the order
 encoder stage 0, stage 1, coarse MLP, folding MLP, each layer's weight.
@@ -114,6 +117,26 @@ def folding_decoder_init(generator: torch.Generator, latent_dim: int = 1024,
             {"grid": folding_grid(grid_size, grid_scale)})
 
 
+def _folding_hidden(p: dict, grid: Tensor, coarse: Tensor, gfv: Tensor
+                    ) -> Tensor:
+    """The folding's first layer and its ReLU, (B, C S, width): fine row
+    ``k = S c + j`` takes ``[grid[j], coarse[c], v] W + b``, summed from
+    ``grid W[:2]`` (once a call) and ``coarse W[2:5] + (v W[5:] + b)``
+    (v's product once a cloud, the sum once a coarse point). That sum runs
+    in f64 and is rounded once, so a row's value carries two roundings
+    where the published layer's 1,029-term f32 product carries many, and
+    the ReLUs downstream switch where the published layer's do, up to its
+    own rounding. The result follows the weight's dtype, as
+    ``nn.dense``'s does."""
+    w = p["w"]
+    acc = torch.promote_types(w.dtype, torch.float32)
+    w64 = w.double()
+    per_coarse = (coarse.double() @ w64[2:5]
+                  + (gfv.double() @ w64[5:] + p["b"].double())[:, None])
+    h = per_coarse.to(acc)[:, :, None] + grid.to(acc) @ w[:2].to(acc)
+    return torch.relu(h.flatten(1, 2).to(w.dtype))
+
+
 def folding_decoder_outputs(params: dict, state: dict, gfv: Tensor
                             ) -> Tuple[Tensor, Tensor]:
     """GFV (B, latent) -> (coarse (B, C, 3), fine (B, C S, 3))."""
@@ -121,11 +144,9 @@ def folding_decoder_outputs(params: dict, state: dict, gfv: Tensor
     coarse = _mlp(params["coarse"], gfv).reshape(bsz, -1, 3)
     with span("ae.folding"):
         grid = state["grid"].to(gfv.dtype)
-        s, c = grid.shape[0], coarse.shape[1]
-        centre = coarse.repeat_interleave(s, dim=1)
-        feat = torch.cat([grid.repeat(c, 1).expand(bsz, -1, -1), centre,
-                          gfv[:, None].expand(-1, c * s, -1)], -1)
-        fine = _mlp(params["folding"], feat) + centre
+        h = _folding_hidden(params["folding"][0], grid, coarse, gfv)
+        fine = _mlp(params["folding"][1:], h) \
+            + coarse.repeat_interleave(grid.shape[0], dim=1)
     return coarse, fine
 
 

@@ -97,8 +97,9 @@ def test_forward_matches_the_reference():
     coarse, fine = pcn.folding_decoder_outputs(params["decoder"],
                                                state["decoder"], gfv)
     want = ref.forward(params, pc, mask, GRID, SCALE)
-    # the same products and sums in the same order on the CPU: equal
-    # within a few f32 roundings of the largest element
+    # the same products, the folding's first layer summed in another
+    # order (its shared parts apart): equal within a few f32 roundings of
+    # the largest element
     for k, got in (("gfv", gfv), ("coarse", coarse), ("fine", fine)):
         assert got.shape == want[k].shape
         assert _rel(got, want[k]) < 1e-6, k
@@ -133,6 +134,88 @@ def test_published_widths_and_glorot_init():
     assert torch.allclose(state["decoder"]["grid"], ref.grid(4, 0.05),
                           rtol=0, atol=1e-8)
     assert state["encoder"] == {}
+
+
+def _plain_dense(p, x):
+    return x @ p["w"] + p["b"]
+
+
+@pytest.mark.parametrize("grid", [2, 4])
+@pytest.mark.parametrize("coarse", [8, 32])
+def test_folding_in_float64_equals_the_concatenated_decoder(
+        monkeypatch, grid, coarse):
+    """The folding's first layer from its shared products against the
+    reference's concatenation, in float64 on the same weights and grid:
+    both outputs and the gradients of the GFV, the coarse cloud and every
+    folding leaf agree to rounding, 1e-12 of the largest element.
+    ``nn.dense`` accumulates in f32 whatever its inputs, so the plain
+    product stands in for it on both sides."""
+    monkeypatch.setattr(pcn.nn, "dense", _plain_dense)
+    params, state = pcn_tree(21, coarse=coarse, grid=grid)
+    dec = tree_map(lambda v: v.double().requires_grad_(True),
+                   params["decoder"])
+    gfv = targets(22, n=1024)[..., 0].double().requires_grad_(True)
+    g = torch.Generator().manual_seed(23)
+    d_coarse = torch.randn(B, coarse, 3, generator=g, dtype=torch.float64)
+    d_fine = torch.randn(B, coarse * grid * grid, 3, generator=g,
+                         dtype=torch.float64)
+    folding = ref.leaves(dec["folding"])
+
+    def outputs_and_grads(decode):
+        out = decode()
+        grads = torch.autograd.grad(
+            (out[0] * d_coarse).sum() + (out[1] * d_fine).sum(),
+            [gfv, out[0]] + list(folding.values()))
+        return out, dict(zip(["gfv", "coarse"] + list(folding), grads))
+
+    grid64 = ref.grid(grid, SCALE).double()
+    got, got_grads = outputs_and_grads(lambda: pcn.folding_decoder_outputs(
+        dec, {"grid": grid64}, gfv))
+    want, want_grads = outputs_and_grads(
+        lambda: ref.decoder(dec, gfv, grid, SCALE))
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float64 and a.shape == b.shape
+        assert _rel(a.detach(), b.detach()) < 1e-12
+    for k, want_grad in want_grads.items():
+        assert _rel(got_grads[k], want_grad) < 1e-12, k
+
+
+class _Shapes(torch.utils._python_dispatch.TorchDispatchMode):
+    """The shape of every tensor each aten operation returns."""
+
+    def __init__(self):
+        super().__init__()
+        self.shapes = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.shapes += [tuple(t.shape) for t in
+                        torch.utils._pytree.tree_leaves(out)
+                        if isinstance(t, torch.Tensor)]
+        return out
+
+
+def test_folding_never_builds_the_concatenated_input():
+    """Neither the forward folding nor its backward returns a tensor 2 + 3
+    + latent wide, or one of B C S rows of the GFV's width: the GFV's
+    product is made once a cloud. The reference's concatenation trips the
+    same check."""
+    params, state = pcn_tree(24)
+    dec = tree_map(lambda v: v.requires_grad_(True), params["decoder"])
+    gfv = targets(25, n=1024)[..., 0].requires_grad_(True)
+    latent, rows = gfv.shape[1], COARSE * GRID * GRID
+
+    def concatenated(decode):
+        with _Shapes() as seen:
+            coarse, fine = decode()
+            (coarse.sum() + fine.sum()).backward()
+        return [s for s in seen.shapes if s and (
+            s[-1] == 2 + 3 + latent
+            or (s[-1] == latent and math.prod(s[:-1]) == B * rows))]
+
+    assert concatenated(lambda: pcn.folding_decoder_outputs(
+        dec, state["decoder"], gfv)) == []
+    assert concatenated(lambda: ref.decoder(dec, gfv, GRID, SCALE))
 
 
 def test_input_draws_subsample_the_target_then_cut_the_hole():
