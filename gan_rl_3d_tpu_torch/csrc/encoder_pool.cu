@@ -414,27 +414,6 @@ cudaError_t launch_tile(bool bf16, cudaStream_t s, const float* pc,
 
 }  // namespace
 
-// Registers a thread of an instance (cudaFuncGetAttributes), or -1.
-GRL_EXPORT int grl_encoder_pool_registers(int tile, int bf16, int masked) {
-  cudaFuncAttributes attr{};
-  cudaError_t err = cudaErrorInvalidValue;
-  const int key = tile * 4 + (bf16 ? 2 : 0) + (masked ? 1 : 0);
-  switch (key) {
-#define GRL_ATTR(T, B, M)                                                    \
-  case T * 4 + (B ? 2 : 0) + (M ? 1 : 0):                                    \
-    err = cudaFuncGetAttributes(&attr, encoder_pool_kernel<T, B, M>);       \
-    break;
-    GRL_ATTR(128, false, false) GRL_ATTR(128, false, true)
-    GRL_ATTR(128, true, false) GRL_ATTR(128, true, true)
-    GRL_ATTR(32, false, false) GRL_ATTR(32, false, true)
-    GRL_ATTR(32, true, false) GRL_ATTR(32, true, true)
-#undef GRL_ATTR
-    default:
-      break;
-  }
-  return err == cudaSuccess ? attr.numRegs : -1;
-}
-
 // pc (B, N, 3) f32; mask (B, N) f32 or null; weights[l] (dims[l],
 // dims[l+1]) f32 (bf16 == 0) or bf16; biases[l] (dims[l+1]) f32; tile the
 // point tile the wrapper picked (128 or 32; encoder_kernel.py::

@@ -61,7 +61,7 @@
 // chunk in their own order and precision, and the chunks in another order
 // than the plain version's matmul, so a layer output may round to the
 // neighbouring bf16 value; held to 2e-2 relative to the plain version
-// (chip_smoke.TOL_BF16), as the bf16 engine is held to the f32 one.
+// (TOL_BF16 in tests/card_checks.py), as the bf16 engine is held to f32.
 
 #include <climits>
 

@@ -263,16 +263,6 @@ GRL_EXPORT int grl_encoder_pool_int8_wide_smem(const int* dims,
   return make_layout(p).words * 4;
 }
 
-// Registers a thread (and local-memory bytes, spills included) of the
-// instance, from cudaFuncGetAttributes; -1 on an error.
-GRL_EXPORT int grl_encoder_pool_int8_wide_attributes(int masked,
-                                                     int* local_bytes) {
-  cudaFuncAttributes attr{};
-  if (cudaFuncGetAttributes(&attr, pick(masked)) != cudaSuccess) return -1;
-  *local_bytes = static_cast<int>(attr.localSizeBytes);
-  return attr.numRegs;
-}
-
 // pc (B, N, 3) f32; mask (B, N) f32 or null; packed: the bundle of
 // pack_int8_encoder in its wide layout for the padded widths dims
 // (n_qlayers + 1 of them); c_last the unpadded output width; device the

@@ -270,8 +270,6 @@ def _lib() -> ctypes.CDLL:
         lib.grl_encoder_pool.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p,
                                          p, p]
         lib.grl_encoder_pool.restype = i
-        lib.grl_encoder_pool_registers.argtypes = [i, i, i]
-        lib.grl_encoder_pool_registers.restype = i
     return lib
 
 
@@ -286,14 +284,6 @@ def _bf16_lib() -> ctypes.CDLL:
             i, i, ctypes.POINTER(ctypes.c_int)]
         lib.grl_encoder_pool_bf16_attributes.restype = i
     return lib
-
-
-def encoder_pool_registers(tile: int, compute_dtype: torch.dtype,
-                           masked: bool) -> int:
-    """Registers a thread of K1's CUDA-core instance
-    (``cudaFuncGetAttributes``)."""
-    return _lib().grl_encoder_pool_registers(
-        tile, int(compute_dtype == torch.bfloat16), int(masked))
 
 
 def encoder_pool_bf16_attributes(masked: bool, flagship: bool
@@ -602,9 +592,6 @@ def _int8_lib(instance: str = "mma") -> ctypes.CDLL:
             lib.grl_encoder_pool_int8_wide.argtypes = [p, p, p, p, i, i, i,
                                                        i, i, p, p, p]
             lib.grl_encoder_pool_int8_wide.restype = i
-            lib.grl_encoder_pool_int8_wide_attributes.argtypes = [
-                i, ctypes.POINTER(ctypes.c_int)]
-            lib.grl_encoder_pool_int8_wide_attributes.restype = i
         return lib
     lib = _cuda.library("encoder_pool_int8")
     if lib.grl_encoder_pool_int8.argtypes is None:
@@ -612,9 +599,6 @@ def _int8_lib(instance: str = "mma") -> ctypes.CDLL:
         lib.grl_encoder_pool_int8.argtypes = [p, p, p, p, i, i, i, i, i, i,
                                               p, p, p]
         lib.grl_encoder_pool_int8.restype = i
-        lib.grl_encoder_pool_int8_attributes.argtypes = [
-            i, i, ctypes.POINTER(ctypes.c_int)]
-        lib.grl_encoder_pool_int8_attributes.restype = i
         lib.grl_encoder_pool_int8_divide_check.argtypes = [
             ctypes.c_longlong, ctypes.c_ulonglong, p, p]
         lib.grl_encoder_pool_int8_divide_check.restype = i
@@ -634,22 +618,6 @@ def int8_divide_mismatches(n: int, seed: int, device) -> int:
                 device).cuda_stream)
     _cuda.check(err, lib, "encoder_pool_int8 divide check")
     return int(count.item())
-
-
-def encoder_pool_int8_attributes(masked: bool, flagship: bool,
-                                 instance: str = "mma") -> Tuple[int, int]:
-    """(registers a thread, local-memory bytes) of a K6 instance, from
-    ``cudaFuncGetAttributes``; for ``"mma"``, ``flagship`` picks the one
-    with the flagship widths fixed at compile time."""
-    local = ctypes.c_int(0)
-    lib = _int8_lib(instance)
-    if instance == "wide":
-        regs = lib.grl_encoder_pool_int8_wide_attributes(
-            int(masked), ctypes.byref(local))
-    else:
-        regs = lib.grl_encoder_pool_int8_attributes(
-            int(masked), int(flagship), ctypes.byref(local))
-    return regs, local.value
 
 
 def encoder_pool_int8_packed(pc: Tensor, packed: PackedEncoder,

@@ -15,7 +15,7 @@ from gan_rl_3d_tpu_torch.ops.quantize import quantize_encoder
 FLAGSHIP = (3, 64, 128, 128, 256, 128)
 RAGGED = (3, 24, 40, 72, 200, 8)
 WIDTHS = [FLAGSHIP, RAGGED, (3, 20, 36, 100, 8), (3, 100)]
-TOL_BF16 = 2e-2  # chip_smoke.TOL_BF16: relative to the largest |ref|
+TOL_BF16 = 2e-2  # card_checks.TOL_BF16: relative to the largest |ref|
 
 
 def _layers(dims, seed, dtype=torch.bfloat16):

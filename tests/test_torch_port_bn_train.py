@@ -332,19 +332,20 @@ def test_variant_ae_step_runs_the_op_on_every_bn_layer(cuda):
     at B=16 on the card: the op's forward and backward wrappers each run
     once for each of its 10 training BN layers (point MLP 5, head 1,
     feature MLP 3, refinement 1), and the loss is finite."""
-    import chip_smoke
+    import card_checks
+    from gan_rl_3d_tpu_torch.config import flagship_config
     from gan_rl_3d_tpu_torch.models import rl_gan_net as net
     from gan_rl_3d_tpu_torch.ops import pointcloud as pc_ops
     from gan_rl_3d_tpu_torch.train import steps
 
-    cfg = chip_smoke._flagship()
+    cfg = flagship_config()
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, autoencoder=dataclasses.replace(
-            cfg.model.autoencoder, **chip_smoke.VARIANT_TYPES)))
+            cfg.model.autoencoder, **card_checks.VARIANT_TYPES)))
     model = net.init_model(torch.Generator().manual_seed(0), cfg, cuda)
-    params = chip_smoke._on(model["ae"]["params"], cuda, grad=True)
+    params = card_checks.on_device(model["ae"]["params"], cuda, grad=True)
     opt, _ = steps.make_ae_optimizer(params, cfg.training.autoencoder, 1)
-    pc, _ = chip_smoke.make_clouds(16, 2048, seed=7, device=cuda)
+    pc, _ = card_checks.make_clouds(16, 2048, seed=7, device=cuda)
     draws = pc_ops.draw_training_batch(
         torch.Generator(device=cuda).manual_seed(8), 16, 2048)
     before = _cuda.launch_counts.copy()

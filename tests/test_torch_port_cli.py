@@ -183,8 +183,9 @@ def test_cli_trains_phase_one_and_jax_reads_the_checkpoint(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Import every module of the port and chip_smoke in a fresh process:
-    none of jax, optax, ml_dtypes or the JAX package may be loaded."""
+    """Import every module of the port and tests/card_checks.py in a
+    fresh process: none of jax, optax, ml_dtypes or the JAX package may be
+    loaded."""
     code = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         sys.path.insert(0, {str(ROOT)!r})
@@ -193,7 +194,8 @@ def test_port_imports_no_jax():
             gan_rl_3d_tpu_torch.__path__, "gan_rl_3d_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
-        import chip_smoke
+        sys.path.insert(0, {str(ROOT / 'tests')!r})
+        import card_checks
         bad = [k for k in ("jax", "jaxlib", "optax", "ml_dtypes",
                            "gan_rl_3d_tpu") if k in sys.modules]
         assert not bad, bad

@@ -22,7 +22,7 @@ from test_torch_port_modules import (GATE_MODES, close, port_small_config,
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-import chip_smoke  # noqa: E402
+import card_checks  # noqa: E402
 
 KEYS = ("noisy_gfv", "z_vector", "clean_gfv", "completed_pc",
         "ae_reconstruction")
@@ -135,10 +135,10 @@ def test_engine_from_numpy_rejects_other_trees(models):
 
 
 def test_smoke_model_tree_has_the_jax_layout():
-    """chip_smoke's random weights feed the JAX package's own complete
+    """The card tests' random weights (card_checks.init_numpy_model) feed the JAX package's own complete
     unchanged, and the port agrees with it on them."""
     pcfg = port_small_config()
-    tree = chip_smoke.init_numpy_model(pcfg, seed=0)
+    tree = card_checks.init_numpy_model(pcfg, seed=0)
     pc, mask = small_clouds(seed=15)
     ref = jnet.complete(tree, pc, mask, cfg=small_config().td3_config())
     out = tnet.complete(model_from_numpy(tree, device="cpu"), t(pc), t(mask),

@@ -10,12 +10,13 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import card_checks
+from gan_rl_3d_tpu_torch.config import flagship_config
 from gan_rl_3d_tpu_torch.ops import _cuda
 from gan_rl_3d_tpu_torch.ops import chamfer, encoder_kernel as ek
 from gan_rl_3d_tpu_torch.ops.metrics import evaluate_completion
 from gan_rl_3d_tpu_torch.ops.quantize import quantize_encoder
-from gan_rl_3d_tpu_torch.utils.tree import tree_map
+from gan_rl_3d_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
 @pytest.fixture
@@ -191,8 +192,8 @@ def test_encoder_pool_int8_takes_every_width(cuda, dims):
 @pytest.mark.cuda
 @pytest.mark.parametrize("masked", [False, True])
 def test_wide_instances_at_the_flagship_widths(cuda, masked):
-    """The instances for wide layers, called at the flagship widths (as
-    chip_smoke.py times them): K6's wide instance equal to its mma.sync
+    """The instances for wide layers, called at the flagship widths (no
+    main path takes them there): K6's wide instance equal to its mma.sync
     instance and the plain version bit for bit, the CUDA-core K1 bf16
     within 2e-2 of the plain version."""
     qenc = _qenc(DIMS, 35, cuda)
@@ -241,7 +242,7 @@ def test_launch_geometry_is_kept_across_shared_memory_sizes(cuda):
 def test_instances_do_not_spill(cuda, source, kernel):
     """ptxas reports no spill for any instance of K1, K6 or K3/K2, and at
     most 255 registers a thread."""
-    report = chip_smoke.ptxas_report(_cuda.build_log(source))
+    report = card_checks.ptxas_report(_cuda.build_log(source))
     found = {k: v for k, v in report.items() if k.startswith(kernel + "<")}
     assert found, report
     for name, info in found.items():
@@ -259,7 +260,7 @@ def _qenc(dims, seed, device):
                     quantize_encoder(_layers(dims, seed)))
 
 
-# widths off every multiple of 32, as chip_smoke.py's ragged K6 case
+# widths off every multiple of 32
 RAGGED_INT8 = (3, 20, 36, 100, 8)
 
 
@@ -355,8 +356,8 @@ def test_int8_engine_on_card_matches_cpu(cuda):
     from gan_rl_3d_tpu_torch.convert import model_from_numpy
     from gan_rl_3d_tpu_torch.models import inference
 
-    cfg = chip_smoke._flagship()
-    model = model_from_numpy(chip_smoke.init_numpy_model(cfg, seed=1),
+    cfg = flagship_config()
+    model = model_from_numpy(card_checks.init_numpy_model(cfg, seed=1),
                              device="cpu")
     engine = inference.prepare_inference_engine(model, quantize_int8=True)
     on_card = tree_map(lambda x: x.to(cuda), engine)
@@ -367,7 +368,7 @@ def test_int8_engine_on_card_matches_cpu(cuda):
                                   gate_mode="rl")
     assert _cuda.launch_counts["encoder_pool_int8"] == before + 1
     for k in ref:
-        assert chip_smoke.scaled_err(out[k].cpu(), ref[k]) <= 1e-4, k
+        assert card_checks.scaled_err(out[k].cpu(), ref[k]) <= 1e-4, k
 
 
 @pytest.mark.cuda
@@ -395,27 +396,27 @@ def test_nn_kernels_match_plain(cuda, n, m, masked):
 @pytest.mark.cuda
 def test_nn_min_equals_nn_dist_bit_for_bit(cuda):
     """K2's distances equal K3's unmasked ones bit for bit at B=64,
-    N=M=2048 and at chip_smoke.NN_RAGGED's shapes."""
-    chip_smoke.nn_k2_equals_k3(cuda)
+    N=M=2048 and at card_checks.NN_RAGGED's shapes."""
+    card_checks.nn_k2_equals_k3(cuda)
 
 
 @pytest.mark.cuda
 def test_nn_dist_mask_of_ones_equals_no_mask(cuda):
-    chip_smoke.nn_ones_mask(cuda)
+    card_checks.nn_ones_mask(cuda)
 
 
 @pytest.mark.cuda
 def test_nn_dist_duplicates_give_the_first_copy(cuda):
     """Exact duplicates in b within a sub-tile and across the sub-tile and
-    tile boundaries (chip_smoke.NN_TIES) give the first copy."""
-    chip_smoke.nn_duplicate_ties(cuda)
+    tile boundaries (card_checks.NN_TIES) give the first copy."""
+    card_checks.nn_duplicate_ties(cuda)
 
 
 @pytest.mark.cuda
 def test_nn_kernels_on_ragged_shapes(cuda):
     """(N, M) = (1, 1), (7, 3000), (1001, 777), (2048, 2048), B=3, masked
     with a fully masked cloud and unmasked, against the plain versions."""
-    assert max(chip_smoke.nn_ragged(cuda)) <= chip_smoke.TOL_DIST
+    assert max(card_checks.nn_ragged(cuda)) <= card_checks.TOL_DIST
 
 
 @pytest.mark.cuda
@@ -479,12 +480,12 @@ def test_scatter_kernel_equals_ordered_plain(cuda, masked, bsz, n, m):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", list(chip_smoke.SCATTER_CASES))
+@pytest.mark.parametrize("case", list(card_checks.SCATTER_CASES))
 def test_scatter_kernel_on_adversarial_targets(cuda, case):
     """Every point on one target, all distinct, M > N, N > M, a cloud past
     shared memory and B=2, N=M=20000: equal to the plain version, and two
     launches give the same bits."""
-    _, idx, da, m = next(c for c in chip_smoke.scatter_cases(cuda)
+    _, idx, da, m = next(c for c in card_checks.scatter_cases(cuda)
                          if c[0] == case)
     before = _cuda.launch_counts["nn_scatter"]
     db = chamfer.nearest_grad_b(idx, da, m)
@@ -515,7 +516,7 @@ def test_chamfer_gradient_on_card_matches_cpu(cuda, masked):
     element; points whose neighbour flips in a near-tie are left out."""
     a, _ = _clouds(4, 2048, 10, cuda)
     b, b_mask = _clouds(4, 1500, 11, cuda)
-    err, flipped, masked_grad = chip_smoke.chamfer_grad_vs_cpu(
+    err, flipped, masked_grad = card_checks.chamfer_grad_vs_cpu(
         a, b, b_mask if masked else None)
     assert err <= 1e-4 and flipped <= 16, (err, flipped)
     assert masked_grad == 0.0
@@ -540,9 +541,9 @@ def test_kernels_take_batches_past_grid_y(cuda, masked):
     K1 (f32, 1e-4 scaled; bf16 on the tensor cores, 2e-2 relative), K3 and
     K2 (1e-3, settled indices equal), K4
     (1e-5 scaled) and K5 (bit for bit) against their plain versions, so
-    the whole Chamfer backward is covered (chip_smoke.big_batch_checks)."""
+    the whole Chamfer backward is covered (card_checks.big_batch_checks)."""
     before = _cuda.launch_counts.copy()
-    chip_smoke.big_batch_checks(cuda, masked)
+    card_checks.big_batch_checks(cuda, masked)
     torch.cuda.synchronize()
     for name in ("encoder_pool_f32", "encoder_pool_bf16", "nn_dist",
                  "nn_min", "nn_gather", "nn_scatter"):
@@ -578,8 +579,8 @@ def test_bf16_engine_file_loads_on_card(cuda, tmp_path):
     from gan_rl_3d_tpu_torch.models import inference
     from gan_rl_3d_tpu_torch.utils.tree import tree_leaves
 
-    model = model_from_numpy(chip_smoke.init_numpy_model(
-        chip_smoke._flagship(), seed=2), device=cuda)
+    model = model_from_numpy(card_checks.init_numpy_model(
+        flagship_config(), seed=2), device=cuda)
     engine = inference.prepare_inference_engine(model, dtype=torch.bfloat16)
     _bf16_engine_file(engine, tmp_path / "bf16.pkl")
     loaded = inference.load_engine(str(tmp_path / "bf16.pkl"), device=cuda,
@@ -600,12 +601,12 @@ def _rl_model(device, seed=3):
     the CPU."""
     from gan_rl_3d_tpu_torch.models import rl_gan_net as net
 
-    cfg = chip_smoke._flagship()
+    cfg = flagship_config()
     model = net.init_model(torch.Generator().manual_seed(seed), cfg, device)
     td3 = cfg.td3_config()
-    copy = {**{k: chip_smoke._on(model[k], torch.device("cpu"))
+    copy = {**{k: card_checks.on_device(model[k], torch.device("cpu"))
                for k in ("ae", "lgan")},
-            "agent": chip_smoke._agent_copy(model["agent"],
+            "agent": card_checks.agent_copy(model["agent"],
                                             torch.device("cpu"), td3)}
     return cfg, td3, model, copy
 
@@ -626,14 +627,14 @@ def test_reward_chamfer_launches_k3(cuda):
                            (0.9 * gfv).to(cuda))
     assert _cuda.launch_counts["nn_dist"] == before + 2
     ref = net.compute_reward(copy, pred, pc, gfv, 0.9 * gfv)
-    assert chip_smoke.rel_err(r.cpu(), ref) <= chip_smoke.TOL_RL_LOSS
+    assert card_checks.rel_err(r.cpu(), ref) <= card_checks.TOL_RL_LOSS
     assert not r.requires_grad
 
 
 @pytest.mark.cuda
 def test_lgan_combined_step_on_card_matches_cpu(cuda):
     """One combined step on the card and on the CPU from the same weights
-    and Adam moments one step old (chip_smoke.lgan_warm): losses, each
+    and Adam moments one step old (card_checks.lgan_warm): losses, each
     network's update, its state; lr 0 on the card fails the update
     check."""
     cfg, _, _, copy = _rl_model(cuda, seed=4)
@@ -641,25 +642,25 @@ def test_lgan_combined_step_on_card_matches_cpu(cuda):
     real = [torch.tanh(torch.randn(
         lc.d_steps, lc.batch_size, m.latent_dim,
         generator=torch.Generator().manual_seed(seed))) for seed in (5, 6)]
-    warm = chip_smoke.lgan_warm(copy["lgan"], cfg, real[0], seed=7)
-    draws = chip_smoke.lgan_draws(cfg, seed=8)
+    warm = card_checks.lgan_warm(copy["lgan"], cfg, real[0], seed=7)
+    draws = card_checks.lgan_draws(cfg, seed=8)
     (sm, card), (ref_m, ref) = (
-        chip_smoke.lgan_step_on(dev, warm, cfg, real[1], draws)
+        card_checks.lgan_step_on(dev, warm, cfg, real[1], draws)
         for dev in (cuda, torch.device("cpu")))
     for k in ("d_loss", "g_loss"):
-        assert chip_smoke._rel(sm[k], ref_m[k]) <= chip_smoke.TOL_RL_LOSS, (
+        assert card_checks.rel_diff(sm[k], ref_m[k]) <= card_checks.TOL_RL_LOSS, (
             k, float(sm[k]), float(ref_m[k]))
-    _, frozen = chip_smoke.lgan_step_on(cuda, warm, cfg, real[1], draws,
+    _, frozen = card_checks.lgan_step_on(cuda, warm, cfg, real[1], draws,
                                         lr_scale=0.0)
     for k in card:
         start = {part: warm[0][part][k] for part in ("params", "state")}
-        update, state, worst, noise = chip_smoke.network_errs(
+        update, state, worst, noise = card_checks.network_errs(
             card[k], ref[k], start)
-        assert update <= chip_smoke.TOL_RL_UPDATE, (k, update)
-        assert state <= chip_smoke.TOL_RL_PARAM, (k, state, worst)
+        assert update <= card_checks.TOL_RL_UPDATE, (k, update)
+        assert state <= card_checks.TOL_RL_PARAM, (k, state, worst)
         assert noise <= 2 * lc.generator_lr * lc.d_steps, (k, noise)
-        assert chip_smoke.network_errs(frozen[k], ref[k], start)[0] > \
-            chip_smoke.TOL_RL_UPDATE, k
+        assert card_checks.network_errs(frozen[k], ref[k], start)[0] > \
+            card_checks.TOL_RL_UPDATE, k
 
 
 @pytest.mark.cuda
@@ -674,12 +675,12 @@ def test_rl_step_on_card_matches_cpu(cuda):
     cfg, td3, model, copy = _rl_model(cuda, seed=7)
     envs, updates, prefill = 8, 4, td3.batch_size
     pc, _ = _clouds(envs, 2048, 31)
-    pre = chip_smoke.random_transitions(prefill, td3, 8, "cpu")
+    pre = card_checks.random_transitions(prefill, td3, 8, "cpu")
     draws = steps.draw_rl_step(torch.Generator().manual_seed(9), envs, 2048,
                                cfg=td3, buffer_size=prefill + envs,
                                updates_per_step=updates)
     out = []
-    start = chip_smoke._agent_copy(copy["agent"], torch.device("cpu"), td3)
+    start = card_checks.agent_copy(copy["agent"], torch.device("cpu"), td3)
     for dev, src in ((cuda, model), (torch.device("cpu"), copy)):
         buf = rb.ReplayBuffer(1000, td3.state_dim, td3.action_dim, dev)
         buf.add_batch(rl.TransitionBatch(*(v.to(dev) for v in pre)))
@@ -688,25 +689,25 @@ def test_rl_step_on_card_matches_cpu(cuda):
             src, buf, rl.ou_init(td3, (envs,), dev),
             {"complete_pc": pc.to(dev), "pad": torch.zeros(envs,
                                                            device=dev)},
-            chip_smoke._on(draws, dev), cfg=td3, start_training_size=prefill,
+            card_checks.on_device(draws, dev), cfg=td3, start_training_size=prefill,
             updates_per_step=updates)
         launched = _cuda.launch_counts["nn_dist"] - before
         out.append((src, buf, ou, sm, launched))
     (card, buf, ou, sm, launched), (ref, rbuf, rou, rsm, rlaunched) = out
     assert launched == 2 and rlaunched == 0
     for k in ("reward", "critic_loss", "actor_loss"):
-        assert chip_smoke._rel(sm[k], rsm[k]) <= chip_smoke.TOL_RL_LOSS, k
+        assert card_checks.rel_diff(sm[k], rsm[k]) <= card_checks.TOL_RL_LOSS, k
     for name in rb.FIELDS:
-        assert chip_smoke.scaled_err(getattr(buf, name).cpu(),
+        assert card_checks.scaled_err(getattr(buf, name).cpu(),
                                      getattr(rbuf, name)) <= \
-            chip_smoke.TOL_RL_PARAM
-    assert chip_smoke.scaled_err(ou.cpu(), rou) <= chip_smoke.TOL_RL_PARAM
-    chip_smoke._check_agents("rl_step", card["agent"], ref["agent"], start,
+            card_checks.TOL_RL_PARAM
+    assert card_checks.scaled_err(ou.cpu(), rou) <= card_checks.TOL_RL_PARAM
+    card_checks.check_agents("rl_step", card["agent"], ref["agent"], start,
                              updates, td3.critic_lr)
 
 
 def _joint_trainer(device, seed=11):
-    """What chip_smoke's joint checks read of a trainer: the flagship
+    """What the joint step checks read of a trainer: the flagship
     config and a fresh model on ``device``."""
     import types
 
@@ -726,30 +727,30 @@ def _joint_trainer(device, seed=11):
 def test_joint_step_on_card_matches_cpu(cuda):
     """One f32 joint step (the recipe's w_ae_recon 1) at B=8, full width,
     on the card and on CPU copies from the same weights, draws and Adam
-    moments one step old (chip_smoke.joint_warm): the loss and its parts,
-    each network's update (chip_smoke.TOL_JOINT_UPDATE, which says why it
+    moments one step old (card_checks.joint_warm): the loss and its parts,
+    each network's update (card_checks.TOL_JOINT_UPDATE, which says why it
     is looser than the phase 3-4 steps') and state; lr 0 on the card fails
     the update check."""
     trainer = _joint_trainer(cuda)
     lr = trainer.config.training.joint.lr
-    warm = chip_smoke.joint_warm(trainer, seed=12)
-    start = chip_smoke._joint_networks(warm[0])
-    batch, draws = chip_smoke.joint_batch(trainer, seed=13)
+    warm = card_checks.joint_warm(trainer, seed=12)
+    start = card_checks.joint_networks(warm[0])
+    batch, draws = card_checks.joint_batch(trainer, seed=13)
     (sm, card), (ref_m, ref) = (
-        chip_smoke.joint_step_on(dev, warm, trainer, batch, draws)
+        card_checks.joint_step_on(dev, warm, trainer, batch, draws)
         for dev in (cuda, torch.device("cpu")))
     for k in ("loss", "chamfer", "gfv"):
-        assert chip_smoke._rel(sm[k], ref_m[k]) <= chip_smoke.TOL_RL_LOSS, k
-    _, frozen = chip_smoke.joint_step_on(cuda, warm, trainer, batch, draws,
+        assert card_checks.rel_diff(sm[k], ref_m[k]) <= card_checks.TOL_RL_LOSS, k
+    _, frozen = card_checks.joint_step_on(cuda, warm, trainer, batch, draws,
                                          lr_scale=0.0)
     for k in card:
-        update, state, worst, noise = chip_smoke.network_errs(
+        update, state, worst, noise = card_checks.network_errs(
             card[k], ref[k], start[k])
-        assert update <= chip_smoke.TOL_JOINT_UPDATE, (k, update)
-        assert state <= chip_smoke.TOL_RL_PARAM, (k, state, worst)
+        assert update <= card_checks.TOL_JOINT_UPDATE, (k, update)
+        assert state <= card_checks.TOL_RL_PARAM, (k, state, worst)
         assert noise <= 2 * lr, (k, noise)
-        assert chip_smoke.network_errs(frozen[k], ref[k], start[k])[0] > \
-            chip_smoke.TOL_JOINT_UPDATE, k
+        assert card_checks.network_errs(frozen[k], ref[k], start[k])[0] > \
+            card_checks.TOL_JOINT_UPDATE, k
 
 
 @pytest.mark.cuda
@@ -763,16 +764,16 @@ def test_joint_step_launches_k3_k4_k5(cuda, w_ae_recon, launches):
     from gan_rl_3d_tpu_torch.train import steps
 
     trainer = _joint_trainer(cuda)
-    kw = dict(chip_smoke._joint_kw(trainer), w_ae_recon=w_ae_recon)
+    kw = dict(card_checks.joint_kw(trainer), w_ae_recon=w_ae_recon)
     names = ("nn_dist", "nn_gather", "nn_scatter")
     for dev, expect in ((cuda, launches), (torch.device("cpu"), (0, 0, 0))):
-        model = chip_smoke._joint_model(trainer.model, dev)
+        model = card_checks.joint_model(trainer.model, dev)
         opt = steps.make_joint_optimizer(steps.joint_trainable(model),
                                          trainer.config.training.joint)
-        batch, draws = chip_smoke.joint_batch(trainer, seed=14, bsz=4)
+        batch, draws = card_checks.joint_batch(trainer, seed=14, bsz=4)
         before = [_cuda.launch_counts[n] for n in names]
-        _, m = steps.joint_train_step(model, opt, chip_smoke._on(batch, dev),
-                                      chip_smoke._on(draws, dev), **kw)
+        _, m = steps.joint_train_step(model, opt, card_checks.on_device(batch, dev),
+                                      card_checks.on_device(draws, dev), **kw)
         assert tuple(_cuda.launch_counts[n] - b
                      for n, b in zip(names, before)) == expect
         assert bool(torch.isfinite(m["loss"]))
@@ -789,22 +790,22 @@ def test_gate_stats_step_on_card_matches_cpu(cuda):
     cpu = torch.device("cpu")
     batch = {"complete_pc": _clouds(16, 2048, 16)[0],
              "pad": torch.zeros(16)}
-    draws = chip_smoke._on(trainer._fixed_holes(2, 0, 16, 2048), cpu)
-    model_cpu = {k: chip_smoke._on(trainer.model[k], cpu)
+    draws = card_checks.on_device(trainer._fixed_holes(2, 0, 16, 2048), cpu)
+    model_cpu = {k: card_checks.on_device(trainer.model[k], cpu)
                  for k in ("ae", "lgan")}
-    model_cpu["agent"] = {"actor": chip_smoke._on(
+    model_cpu["agent"] = {"actor": card_checks.on_device(
         trainer.model["agent"]["actor"], cpu)}
     kw = dict(cfg=trainer.td3, spec=trainer.preproc)
     before = _cuda.launch_counts["nn_dist"]
-    out = gate_lib.gate_stats_step(trainer.model, chip_smoke._on(batch, cuda),
-                                   chip_smoke._on(draws, cuda), **kw)
+    out = gate_lib.gate_stats_step(trainer.model, card_checks.on_device(batch, cuda),
+                                   card_checks.on_device(draws, cuda), **kw)
     assert _cuda.launch_counts["nn_dist"] == before + 4
     ref = gate_lib.gate_stats_step(model_cpu, batch, draws, **kw)
     for k in ("cd_rl", "cd_ae"):
-        assert chip_smoke.scaled_err(out[k].cpu(), ref[k]) <= \
-            chip_smoke.TOL_F32, k
+        assert card_checks.scaled_err(out[k].cpu(), ref[k]) <= \
+            card_checks.TOL_F32, k
     assert float((out["margin"].cpu() - ref["margin"]).abs().max()) <= \
-        chip_smoke.TOL_GATE_MARGIN * float(ref["margin"].abs().max())
+        card_checks.TOL_GATE_MARGIN * float(ref["margin"].abs().max())
 
 
 # ---------------------------------------------------------------------------
@@ -885,7 +886,7 @@ def test_world_one_nccl_step_is_the_one_process_step(cuda, tmp_path):
         dist.destroy_process_group()
     b = _mesh_ae_step(cuda, None)
     assert a[0] == b[0]
-    for x, y in zip(chip_smoke._leaves(a[1]), chip_smoke._leaves(b[1])):
+    for x, y in zip(tree_leaves(a[1]), tree_leaves(b[1])):
         assert torch.equal(x, y)
 
 
@@ -894,7 +895,7 @@ def test_two_gloo_ranks_on_the_card_match_one_process(cuda, tmp_path):
     """Two gloo ranks sharing the card (CUDA tensors staged through the
     host) take one DP AE step: the loss within 1e-4 relative and the
     update within 1e-2 of the one process's in the 2-norm (Adam-noise
-    leaves within 2 lr), as chip_smoke's multi path holds them."""
+    leaves within 2 lr), as the multi path's card test holds them."""
     import torch.multiprocessing as mp
 
     out = tmp_path / "rank0.pt"
@@ -903,5 +904,5 @@ def test_two_gloo_ranks_on_the_card_match_one_process(cuda, tmp_path):
     got = torch.load(out, weights_only=False)
     loss, net, start = _mesh_ae_step(cuda, None)
     assert abs(got["loss"] - loss) <= 1e-4 * abs(loss)
-    update, _, _, noise = chip_smoke.network_errs(got["net"], net, start)
+    update, _, _, noise = card_checks.network_errs(got["net"], net, start)
     assert update <= 1e-2 and noise <= 2e-3, (update, noise)

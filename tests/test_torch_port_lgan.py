@@ -11,7 +11,7 @@ import optax
 import pytest
 import torch
 
-import chip_smoke
+import card_checks
 from gan_rl_3d_tpu import config as jcfg
 from gan_rl_3d_tpu import nn as jnn
 from gan_rl_3d_tpu.models import latent_gan as jlg
@@ -56,11 +56,11 @@ def assert_update_close(port, ref, start, tol, noise_tol):
     ``start``: each leaf's update (new - start) within ``tol`` of the
     largest element of JAX's update of that network, so that a port whose
     Adam did nothing, or took the wrong lr or betas, fails. The leaves
-    Adam makes noise of (chip_smoke.adam_noise: their true gradient is 0,
+    Adam makes noise of (card_checks.adam_noise: their true gradient is 0,
     so last-bit gradients become steps of up to lr either way) are held to
     ``noise_tol`` absolute instead. Where JAX left the network as it was,
     the port must have too."""
-    leaves = list(zip(chip_smoke._named_leaves(port), jax.tree.leaves(ref),
+    leaves = list(zip(card_checks.named_leaves(port), jax.tree.leaves(ref),
                       jax.tree.leaves(start)))
     assert len(leaves) == len(tree_leaves(port)) == len(jax.tree.leaves(ref))
     moved = max(float(np.abs(np.asarray(r, np.float64) - s).max())
@@ -68,7 +68,7 @@ def assert_update_close(port, ref, start, tol, noise_tol):
     for (path, p), r, s in leaves:
         err = float(np.abs(np.asarray(p.detach(), np.float64)
                            - np.asarray(r, np.float64)).max())
-        if chip_smoke.adam_noise(path, port):
+        if card_checks.adam_noise(path, port):
             assert err <= noise_tol, (path, err, noise_tol)
         else:
             assert err <= tol * moved, (path, err, tol, moved)
@@ -339,9 +339,9 @@ def _assert_adam_steps_match(losses, tp, jp, ts, js):
     for net, updates in (("generator", 2), ("discriminator", 6)):
         noise_tol = 2 * ADAM_LR * updates
         assert_update_close(tp[net], jp[net], start_p[net], 1e-3, noise_tol)
-        for (path, p), r in zip(chip_smoke._named_leaves(ts[net]),
+        for (path, p), r in zip(card_checks.named_leaves(ts[net]),
                                 jax.tree.leaves(js[net])):
-            if chip_smoke.adam_noise(path, ts[net]):
+            if card_checks.adam_noise(path, ts[net]):
                 close(p, r, noise_tol)
             else:
                 close_scaled(p, r, 1e-5)

@@ -10,7 +10,7 @@ to the plain K3 bit for bit on clouds with exact duplicates across the
 sub-tile and tile boundaries. Then: first-copy ties of the plain K3
 against the JAX package's Pallas kernel (interpret mode), K2's plain
 distances against K3's, a mask of ones, the CPU wrappers, and the
-geometry chip_smoke.py reads from the source."""
+geometry card_checks.nn_geometry reads from the source."""
 
 import re
 from pathlib import Path
@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import card_checks
 from gan_rl_3d_tpu.ops import chamfer as jchamfer
 from gan_rl_3d_tpu_torch.ops import chamfer
 
@@ -179,9 +179,9 @@ def test_first_copy_against_jax_across_a_tile(masked):
     np.testing.assert_allclose(d.numpy(), np.asarray(ref_d), atol=1e-5)
 
 
-@pytest.mark.parametrize("n,m", chip_smoke.NN_RAGGED[:3])
+@pytest.mark.parametrize("n,m", card_checks.NN_RAGGED[:3])
 def test_plain_k2_equals_plain_k3_distances(n, m):
-    """The check chip_smoke.py makes of the kernels, on the plain versions:
+    """The check the card tests make of the kernels, on the plain versions:
     K2's distances are K3's unmasked ones bit for bit."""
     a, b = _clouds(6, 3, n, m)
     a, b = torch.from_numpy(a), torch.from_numpy(b)
@@ -208,8 +208,8 @@ def test_cpu_tensors_run_the_plain_versions():
 
 
 def test_geometry_is_the_sources():
-    """chip_smoke.py reports the R and C that csrc/nn_dist.cu fixes, and a
+    """card_checks.nn_geometry reads the R and C that csrc/nn_dist.cu fixes, and a
     shared-memory tile holds whole sub-tiles."""
-    assert chip_smoke.nn_geometry() == {"R": GEOMETRY["R"],
+    assert card_checks.nn_geometry() == {"R": GEOMETRY["R"],
                                         "C": GEOMETRY["C"]}
     assert TILE % SUB == 0 and GEOMETRY["Threads"] % 32 == 0

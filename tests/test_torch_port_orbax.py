@@ -19,7 +19,7 @@ import pytest
 import tensorstore as ts
 import zstandard
 
-import chip_smoke
+import card_checks
 from gan_rl_3d_tpu import config as jcfg
 from gan_rl_3d_tpu.models import inference as jinf
 from gan_rl_3d_tpu.models import rl_gan_net as jnet
@@ -309,13 +309,13 @@ def test_trained_lgan_best_serves_as_in_jax(restored, gate_mode):
 
 def test_trained_int8_engine_matches_jax(restored):
     """The int8 engine of lgan_best, port against the JAX package, on the
-    synthetic clouds chip_smoke serves it (B=64): every output within 1e-4
+    synthetic clouds the trained-weights card test serves it (B=64): every output within 1e-4
     scaled. Both miss the random-weight GFV bound (2e-2 of the largest
     element, tests/test_fused_encoder.py:98-100) by the same amount on
-    these weights, and JAX's reading sets chip_smoke's trained-weight
-    limit."""
+    these weights, and JAX's reading sets the card tests' trained-weight
+    limit (card_checks.TOL_INT8_GFV_TRAINED)."""
     port_tree, ref_tree, _ = restored["lgan_best"]
-    pc, mask = chip_smoke.synthetic_clouds(64, 2048, seed=90, device="cpu")
+    pc, mask = card_checks.synthetic_clouds(64, 2048, seed=90, device="cpu")
     model = model_from_numpy(port_tree["model"], device="cpu")
     out = {q: tinf.complete_fast(tinf.prepare_inference_engine(
         model, quantize_int8=q), pc, mask, gate_mode="rl")
@@ -336,7 +336,7 @@ def test_trained_int8_engine_matches_jax(restored):
     print(f"int8 GFV vs f32 on lgan_best: port {port_err:.4e}, JAX "
           f"{jax_err:.4e}")
     assert abs(port_err - jax_err) <= 1e-5
-    assert jax_err <= chip_smoke.TOL_INT8_GFV_TRAINED
+    assert jax_err <= card_checks.TOL_INT8_GFV_TRAINED
 
 
 # ---------------------------------------------------------------------------

@@ -478,7 +478,7 @@ def _scaled(batch_like):
 
 def _update_tol(ref, start, moved) -> tuple:
     """(2-norm tolerance, state tolerance) of an update check: 1e-2 in the
-    2-norm (the card-vs-CPU bound of chip_smoke) and 1e-4 of each state
+    2-norm (the card-vs-CPU bound of card_checks) and 1e-4 of each state
     leaf, or 4 x what the one-process update itself moves when its input
     moves by one part in 10^7 (``moved``), where that is more."""
     _, _, state, norm = worker.update_errors(moved, ref, start)

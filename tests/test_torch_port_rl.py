@@ -13,7 +13,7 @@ import pytest
 import torch
 import yaml
 
-import chip_smoke
+import card_checks
 from gan_rl_3d_tpu.models import rl_agent as jrl
 from gan_rl_3d_tpu.models import rl_gan_net as jnet
 from gan_rl_3d_tpu.ops import losses as jlosses
@@ -171,7 +171,7 @@ def _assert_agent_after_updates(agent, jagent, start, n_updates,
     a training BatchNorm have a true gradient of 0 (the BN subtracts them
     again), so their last-bit gradients become steps of up to lr either
     way: in the online networks and their moments such a bias, and the BN
-    running mean that takes it in (chip_smoke.adam_noise), are held to 2
+    running mean that takes it in (card_checks.adam_noise), are held to 2
     lr a TD3 update (critic lr 1e-3, the larger). Measured after 4
     updates: 5.4e-3 in such a bias, 1.6e-3 in a running mean, at most
     4.3e-5 elsewhere; the updates within 2.4e-4 of JAX's largest element
@@ -186,14 +186,14 @@ def _assert_agent_after_updates(agent, jagent, start, n_updates,
     port_cmp["opt"] = {name: {"mu": port["opt"][name]["mu"],
                               "nu": port["opt"][name]["nu"]}
                        for name in trl.NETWORKS}
-    leaves = list(zip(chip_smoke._named_leaves(port_cmp),
+    leaves = list(zip(card_checks.named_leaves(port_cmp),
                       jax.tree.leaves(ref)))
     assert len(leaves) == len(jax.tree.leaves(port_cmp))
     for (path, p), r in leaves:
         # path: (network, ...) or ("opt", network, "mu" / "nu", ...)
         root, rest = ((port_cmp["opt"][path[1]][path[2]], path[3:])
                       if path[0] == "opt" else (port_cmp[path[0]], path[1:]))
-        loose = path[0] not in TARGETS and chip_smoke.adam_noise(rest, root)
+        loose = path[0] not in TARGETS and card_checks.adam_noise(rest, root)
         close_scaled(p, r, lr_tol if loose else tol)
     for name in trl.NETWORKS:
         assert_update_close(leaf_tensors(port[name]["params"]),

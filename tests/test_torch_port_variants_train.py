@@ -156,7 +156,7 @@ def test_variant_f32_ae_train_step_matches_jax(recon_loss):
 def test_variant_bf16_selective_forward_pieces_match_jax():
     """JAX's bf16_selective cast of the variant family, piece by piece, in
     training mode: the attention encoder's GFV within 2e-2 of JAX's
-    largest element (the repo's bf16 bound, chip_smoke.TOL_BF16), not
+    largest element (the repo's bf16 bound, card_checks.TOL_BF16), not
     equal: its pool sums f32 products in another order than XLA, the
     bf16 head rounds those last bits either way, and its training BN
     scales the bf16 ulps (15% of the elements differ, by 1.9e-2 of the

@@ -452,7 +452,7 @@ def _named(tree, path=()):
 
 
 def adam_noise(path, tree) -> bool:
-    """The leaves Adam makes noise of (chip_smoke.adam_noise): a dense
+    """The leaves Adam makes noise of (card_checks.adam_noise): a dense
     bias that feeds a training BatchNorm, the critic's such biases, and
     the BN running means that take them in. Their true gradient is 0, so
     last-bit gradients become steps of up to lr either way."""
